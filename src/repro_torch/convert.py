@@ -1,0 +1,141 @@
+"""Load parameters of the JAX reference into the port.
+
+``params_from_jax(tree, cfg)`` takes either the reference's parameter tree
+as numpy arrays (``jax.tree.map(np.asarray, params)``) or the flat dict of
+a reference checkpoint npz, keyed by ``jax.tree_util.keystr`` with bf16
+stored as ``BF16::`` uint16 (``repro/train/checkpoint.py:26-58``).  The
+reference stacks layers by scan group, ``blocks[g]["b{j}"][n_rep, ...]``;
+layer ``i`` of the port is entry ``r`` of group ``g``, block ``j``, in plan
+order.  Every reference leaf must be used exactly once: a missing leaf,
+a shape that differs, or a leaf left over raises.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.devices import resolve_device
+from repro_torch.models import LMConfig, block_plan, check_supported
+
+__all__ = ["params_from_jax", "param_shapes"]
+
+_BF16 = "BF16::"
+_KEY = re.compile(r"\[(?:'([^']*)'|(\d+))\]")
+
+
+def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
+    """The port's parameter tree with shapes as leaves (one block shown
+    under "layer"; every layer has the same)."""
+    D, H, Hkv, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
+                        cfg.d_ff)
+
+    def dense(i, o):
+        return {"w": (i, o)}
+
+    def norm(d, kind):
+        return {"scale": (d,), **({"bias": (d,)} if kind == "layernorm"
+                                  else {})}
+
+    attn = {"wq": dense(D, H * dh), "wk": dense(D, Hkv * dh),
+            "wv": dense(D, Hkv * dh), "wo": dense(H * dh, D)}
+    if cfg.qkv_bias:
+        for name, width in (("wq", H * dh), ("wk", Hkv * dh),
+                            ("wv", Hkv * dh)):
+            attn[name]["b"] = (width,)
+    if cfg.qk_norm:
+        attn["q_norm"] = norm(dh, "rmsnorm")
+        attn["k_norm"] = norm(dh, "rmsnorm")
+    return {"embed": {"table": (cfg.vocab, D)},
+            "layer": {"ln1": norm(D, cfg.norm), "ln2": norm(D, cfg.norm),
+                      "attn": attn,
+                      "mlp": {"w_up": dense(D, F), "w_down": dense(F, D)}},
+            "final_ln": norm(D, cfg.norm),
+            "lm_head": {"w": (D, cfg.vocab)}}
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def _parse_keystr(key: str) -> Tuple:
+    parts = tuple(s if s else int(i) for s, i in _KEY.findall(key))
+    if "".join(f"['{p}']" if isinstance(p, str) else f"[{p}]"
+               for p in parts) != key:
+        raise ValueError(f"not a jax keystr path: {key!r}")
+    return parts
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def _flat(tree_or_npz) -> Dict[Tuple, torch.Tensor]:
+    flat = {}
+    if all(isinstance(k, str) and k.removeprefix(_BF16).startswith("[")
+           for k in tree_or_npz):
+        for key, arr in tree_or_npz.items():
+            if key.startswith(_BF16):
+                t = torch.from_numpy(np.asarray(arr).view(np.int16).copy())
+                flat[_parse_keystr(key[len(_BF16):])] = t.view(torch.bfloat16)
+            else:
+                flat[_parse_keystr(key)] = _to_tensor(arr)
+        return flat
+    for path, leaf in _leaves(tree_or_npz):
+        flat[path] = _to_tensor(leaf)
+    return flat
+
+
+def params_from_jax(tree_or_npz, cfg: LMConfig, device=None) -> dict:
+    """The port's parameters from the reference's tree or checkpoint dict,
+    on ``device`` (default ``cuda``), in the reference's dtypes."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    flat = _flat(tree_or_npz)
+    shapes = param_shapes(cfg)
+
+    def take(path, shape):
+        if path not in flat:
+            raise KeyError(f"reference parameters lack {path}")
+        t = flat.pop(path)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != {shape}")
+        return t
+
+    def build(shape_tree, prefix):
+        return {k: (build(v, prefix + (k,)) if isinstance(v, dict)
+                    else take(prefix + (k,), v).to(device))
+                for k, v in shape_tree.items()}
+
+    params = {k: build(shapes[k], (k,))
+              for k in ("embed", "final_ln", "lm_head")}
+    layers = []
+    for g, (pattern, n_rep) in enumerate(block_plan(cfg)):
+        group = [dict() for _ in range(n_rep * len(pattern))]
+        for j in range(len(pattern)):
+            for sub, shape in _leaves(shapes["layer"]):
+                stacked = take(("blocks", g, f"b{j}") + sub,
+                               (n_rep,) + tuple(shape))
+                for r in range(n_rep):
+                    node = group[r * len(pattern) + j]
+                    for key in sub[:-1]:
+                        node = node.setdefault(key, {})
+                    node[sub[-1]] = stacked[r].to(device)
+        layers.extend(group)
+    params["layers"] = layers
+    if flat:
+        raise ValueError(f"reference leaves not used by the port: "
+                         f"{sorted(map(str, flat))}")
+    return params

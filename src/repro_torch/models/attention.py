@@ -1,0 +1,127 @@
+"""Attention: MHA/GQA with QK-norm and RoPE, via ``mx_contract``.
+
+Counterpart of ``repro.models.attention`` for the dense serving path.
+Projections go through ``qdense`` (the MX GEMM kernel); mixing goes through
+``mx_contract(kind="flash_attn")`` on the folded (BH, G, T, d) layout for
+prefill and ``kind="attn_decode"`` for one-token decode.  QK-norm is an
+RMSNorm without bias whatever ``cfg.norm`` says, and runs without the
+layer-norm quantization, as in the reference.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core import AttnSpec, QuantConfig, mx_contract
+from .layers import apply_norm, dense_init, norm_init, qdense, rope
+
+__all__ = ["attn_init", "attention_decode", "attention_prefill",
+           "decode_valid_mask", "flash_attention"]
+
+
+def attn_init(generator: torch.Generator, d_model: int, n_heads: int,
+              n_kv: int, d_head: int, qk_norm: bool = False,
+              qkv_bias: bool = False, n_layers: int = 1):
+    p = {
+        "wq": dense_init(generator, d_model, n_heads * d_head, bias=qkv_bias),
+        "wk": dense_init(generator, d_model, n_kv * d_head, bias=qkv_bias),
+        "wv": dense_init(generator, d_model, n_kv * d_head, bias=qkv_bias),
+        "wo": dense_init(generator, n_heads * d_head, d_model,
+                         std=1.0 / math.sqrt(n_heads * d_head * 2 * n_layers)),
+    }
+    if qk_norm:
+        p["q_norm"] = norm_init(d_head, device=generator.device)
+        p["k_norm"] = norm_init(d_head, device=generator.device)
+    return p
+
+
+def _project_qkv(p, x, qcfg: QuantConfig, n_heads: int, n_kv: int,
+                 d_head: int, positions, rope_theta: float = 1e4):
+    """q (B, T, Hkv, G, d), k and v (B, T, Hkv, d)."""
+    B, T = x.shape[:2]
+    G = n_heads // n_kv
+    q = qdense(p["wq"], x, qcfg).reshape(B, T, n_kv, G, d_head)
+    k = qdense(p["wk"], x, qcfg).reshape(B, T, n_kv, 1, d_head)
+    v = qdense(p["wv"], x, qcfg).reshape(B, T, n_kv, 1, d_head)
+    if "q_norm" in p:
+        q = apply_norm(p["q_norm"], q, qcfg.without_ln_quant())
+        k = apply_norm(p["k_norm"], k, qcfg.without_ln_quant())
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+    return q, k[:, :, :, 0], v[:, :, :, 0]
+
+
+def _fold(q, k, v):
+    """(B, T, Hkv, G/·, d) model layout -> q (B*Hkv, G, Tq, d),
+    k (B*Hkv, Tk, d), v (B*Hkv, Tk, dv)."""
+    B, Tq, Hkv, G, d = q.shape
+    qf = q.permute(0, 2, 3, 1, 4).reshape(B * Hkv, G, Tq, d)
+    kf = k.permute(0, 2, 1, 3).reshape(B * Hkv, k.shape[1], k.shape[-1])
+    vf = v.permute(0, 2, 1, 3).reshape(B * Hkv, v.shape[1], v.shape[-1])
+    return qf, kf, vf
+
+
+def _unfold(out, B: int, Hkv: int):
+    """(B*Hkv, G, Tq, dv) -> (B, Tq, Hkv, G, dv)."""
+    BH, G, Tq, dv = out.shape
+    return out.reshape(B, Hkv, G, Tq, dv).permute(0, 3, 1, 2, 4)
+
+
+def flash_attention(q, k, v, qcfg: QuantConfig, spec: AttnSpec):
+    """q (B, Tq, Hkv, G, d), k (B, Tk, Hkv, d), v (B, Tk, Hkv, dv) ->
+    (B, Tq, Hkv, G, dv)."""
+    B, Hkv = q.shape[0], q.shape[2]
+    qf, kf, vf = _fold(q, k, v)
+    out = mx_contract(qf, (kf, vf), qcfg, kind="flash_attn", spec=spec)
+    return _unfold(out, B, Hkv)
+
+
+def attention_prefill(p, x, *, qcfg: QuantConfig, n_heads: int, n_kv: int,
+                      d_head: int, positions, spec: AttnSpec,
+                      rope_theta: float = 1e4):
+    """Full-sequence attention plus the zero-padded (B, cache_len, Hkv, d)
+    decode cache.  Every prompt position is written, the engine's bucket
+    padding included: decode quantizes v along the whole cache axis, so
+    those pad rows are part of the numbers, as in the reference."""
+    B, T = x.shape[:2]
+    cache_len = spec.cache_len
+    if T > cache_len:
+        raise ValueError(f"prompt length {T} exceeds cache_len {cache_len}")
+    q, k, v = _project_qkv(p, x, qcfg, n_heads, n_kv, d_head, positions,
+                           rope_theta)
+    o = flash_attention(q, k, v, qcfg, spec)
+    out = qdense(p["wo"], o.reshape(B, T, n_heads * d_head), qcfg)
+    ck = k.new_zeros((B, cache_len) + k.shape[2:])
+    cv = v.new_zeros((B, cache_len) + v.shape[2:])
+    ck[:, :T] = k
+    cv[:, :T] = v
+    return out, {"k": ck, "v": cv}
+
+
+def decode_valid_mask(pos: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, S) validity of a global cache at per-row positions ``pos``."""
+    kv_pos = torch.arange(S, device=pos.device)
+    return kv_pos[None, :] <= pos[:, None]
+
+
+def attention_decode(p, x, cache, *, qcfg: QuantConfig, n_heads: int,
+                     n_kv: int, d_head: int, pos: torch.Tensor,
+                     rope_theta: float = 1e4):
+    """One-token decode.  x (B, 1, D); cache {"k", "v"}: (B, S, Hkv, d);
+    pos (B,) int.  The new K/V row is written into the cache in place (the
+    reference returns a new cache and donates the old buffers), and the
+    decode kernel reads the cache in this layout through strides."""
+    B = x.shape[0]
+    S = cache["k"].shape[1]
+    q, k_new, v_new = _project_qkv(p, x, qcfg, n_heads, n_kv, d_head,
+                                   pos[:, None], rope_theta)
+    rows = torch.arange(B, device=x.device)
+    cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+    G = n_heads // n_kv
+    qf = q[:, 0].reshape(B * n_kv, G, d_head)
+    o = mx_contract(qf, (cache["k"], cache["v"]), qcfg, kind="attn_decode",
+                    valid=decode_valid_mask(pos, S))
+    o = o.reshape(B, 1, n_heads * d_head).to(x.dtype)
+    return qdense(p["wo"], o, qcfg), cache

@@ -1,0 +1,107 @@
+"""Shared layers: MX-quantized dense, norms with MX-quantized affine, RoPE.
+
+Counterpart of ``repro.models.layers``.  Parameters are plain dicts of
+tensors with the reference's names and shapes.  The norm's vector ops run
+in fp32; with ``qcfg.ln_fmt`` set both the affine scale and the normalized
+activations are MX-quantized along the last axis (the paper's §6.1
+culprit), through the quantize kernel on CUDA.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.core import QuantConfig, mx_contract
+from repro_torch.kernels import ops
+
+PARAM_DTYPE = torch.float32
+COMPUTE_DTYPE = torch.bfloat16
+
+__all__ = ["dense_init", "qdense", "norm_init", "apply_norm", "embed_init",
+           "embed_lookup", "rope", "trunc_normal", "PARAM_DTYPE",
+           "COMPUTE_DTYPE"]
+
+
+def trunc_normal(shape, std: float, generator: torch.Generator
+                 ) -> torch.Tensor:
+    """``std`` times a standard normal truncated to [-3, 3], as the
+    reference's ``trunc_normal`` (same distribution, not the same bits)."""
+    t = torch.empty(shape, dtype=PARAM_DTYPE, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=generator)
+    return t * std
+
+
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               std: Optional[float] = None, bias: bool = False):
+    p = {"w": trunc_normal((d_in, d_out), std or 1.0 / math.sqrt(d_in),
+                           generator)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=PARAM_DTYPE,
+                             device=generator.device)
+    return p
+
+
+def qdense(p, x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
+    """MX-quantized dense layer; the weight is used in ``x.dtype`` (a bf16
+    weight, as the serve engine holds it, is used as it is)."""
+    y = mx_contract(x, p["w"].to(x.dtype), qcfg, kind="dense")
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def norm_init(d: int, kind: str = "rmsnorm", device=None):
+    p = {"scale": torch.ones((d,), dtype=PARAM_DTYPE, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=PARAM_DTYPE, device=device)
+    return p
+
+
+def apply_norm(p, x: torch.Tensor, qcfg: QuantConfig, kind: str = "rmsnorm",
+               eps: float = 1e-5) -> torch.Tensor:
+    """Norm in fp32 with MX-quantized affine parameters (paper §6.1)."""
+    xf = x.to(torch.float32)
+    if kind == "layernorm":
+        xf = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    xn = xf * torch.rsqrt(var + eps)
+    scale = p["scale"].to(torch.float32)
+    if qcfg.ln_fmt is not None:
+        scale = ops.mx_quantize(scale, qcfg.ln_fmt, axis=-1, block=qcfg.block,
+                                scale_mode=qcfg.scale_mode)
+        xn = ops.mx_quantize(xn, qcfg.ln_fmt, axis=-1, block=qcfg.block,
+                             scale_mode=qcfg.scale_mode)
+    y = xn * scale
+    if "bias" in p:
+        y = y + p["bias"].to(torch.float32)
+    return y.to(x.dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int):
+    return {"table": trunc_normal((vocab, d), 1.0 / math.sqrt(d), generator)}
+
+
+def embed_lookup(p, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of the table in bf16 (gathering, then casting, gives the
+    reference's cast-then-gather values)."""
+    return p["table"][ids].to(COMPUTE_DTYPE)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4
+         ) -> torch.Tensor:
+    """Rotary embedding over the last axis, first half against second half
+    (not interleaved).  x: (B, T, ..., d); positions: (B, T)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-math.log(theta)
+                      * torch.arange(0, half, dtype=torch.float32,
+                                     device=x.device) / half)
+    ang = positions.to(torch.float32)[..., None] * freqs
+    extra = x.ndim - positions.ndim - 1
+    ang = ang.reshape(ang.shape[:-1] + (1,) * extra + (half,))
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,222 @@
+"""Decoder LM assembly for serving: prefill and one-token decode.
+
+Counterpart of ``repro.models.transformer`` for dense ``"attn"`` blocks.
+Parameters are a plain dict with per-layer entries:
+
+    {"embed": {"table"}, "layers": [block, ...], "final_ln": {...},
+     "lm_head": {"w"}}
+
+where each ``block`` has the reference's per-block names (``ln1``, ``attn``,
+``ln2``, ``mlp``).  Layer ``i`` is the reference's stacked group entry
+``blocks[g]["b{j}"][r]`` in plan order (see ``convert.params_from_jax``).
+The decode cache is a list with one ``{"k", "v"}`` dict of
+(B, S, Hkv, d) bf16 tensors per layer, updated in place.
+
+MoE, MLA, recurrent, xLSTM, windowed, encoder-decoder and frontend configs
+raise ``NotImplementedError``: they come with a later slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core import AttnSpec, QuantConfig
+from repro_torch.devices import resolve_device
+from .attention import attention_decode, attention_prefill, attn_init
+from .layers import (apply_norm, dense_init, embed_init, embed_lookup,
+                     norm_init, qdense)
+from .mlp import mlp_apply, mlp_init
+
+__all__ = ["LMConfig", "block_plan", "lm_init", "init_cache", "lm_prefill",
+           "lm_decode_step", "prefill_supported", "check_supported"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """The reference's ``LMConfig`` field for field, so a config converts
+    between the packages with ``dataclasses.asdict``."""
+    name: str = "lm"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    d_head: int = 64
+    d_ff: int = 1024
+    vocab: int = 512
+    norm: str = "rmsnorm"
+    act: str = "gelu"
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    tie_embeddings: bool = False
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    moe_dff: int = 0
+    capacity_factor: float = 1.25
+    first_dense: int = 0
+    mla: bool = False
+    q_lora: int = 1536
+    kv_lora: int = 512
+    nope_dim: int = 128
+    rope_dim: int = 64
+    v_head: int = 128
+    block_pattern: Tuple[str, ...] = ("attn",)
+    window: int = 0
+    d_rnn: int = 0
+    enc_layers: int = 0
+    frontend: str = "none"
+    n_frontend_tokens: int = 0
+    scan_layers: bool = True
+    remat: str = "full"
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    loss_chunk: int = 2048
+
+    def attn_spec(self, cache_len: int = 0) -> AttnSpec:
+        """Causal prefill AttnSpec with the config's tiles."""
+        return dataclasses.replace(
+            AttnSpec.training(causal=True, q_chunk=self.q_chunk,
+                              kv_chunk=self.kv_chunk), cache_len=cache_len)
+
+
+def check_supported(cfg: LMConfig) -> None:
+    """Raise for configs outside this slice of the port."""
+    later = []
+    if cfg.n_experts:
+        later.append("MoE")
+    if cfg.mla:
+        later.append("MLA")
+    if set(cfg.block_pattern) != {"attn"}:
+        later.append(f"block kinds {sorted(set(cfg.block_pattern))}")
+    if cfg.window:
+        later.append("windowed (ring-buffer) attention")
+    if cfg.enc_layers or cfg.frontend != "none":
+        later.append("encoder-decoder / modality frontends")
+    if cfg.tie_embeddings:
+        later.append("tied embeddings")
+    if later:
+        raise NotImplementedError(
+            f"config {cfg.name!r} needs {', '.join(later)}: the port serves "
+            "dense 'attn' stacks; the other architectures come with the "
+            "later slice that ports MoE, MLA and the recurrent blocks")
+
+
+def block_plan(cfg: LMConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """The reference's scan groups: (pattern, n_rep) in layer order."""
+    pat = tuple(cfg.block_pattern)
+    n_rep, tail = divmod(cfg.n_layers, len(pat))
+    groups = []
+    if n_rep:
+        groups.append((pat, n_rep))
+    if tail:
+        groups.append((pat[:tail], 1))
+    return groups
+
+
+def prefill_supported(cfg: LMConfig) -> bool:
+    """Whether ``lm_prefill`` covers this config (decoder-only stacks)."""
+    return cfg.enc_layers == 0 and cfg.frontend == "none"
+
+
+def lm_init(cfg: LMConfig, generator: torch.Generator, device=None
+            ) -> Dict[str, Any]:
+    """Fresh fp32 weights with the reference's shapes and distributions
+    (truncated normals, unit norm scales, zero biases); not its bits.  Drawn
+    on ``generator.device`` and moved to ``device`` (default ``cuda``)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    L = cfg.n_layers
+    gd = generator.device
+    params = {"embed": embed_init(generator, cfg.vocab, cfg.d_model),
+              "layers": []}
+    for _ in range(L):
+        params["layers"].append({
+            "ln1": norm_init(cfg.d_model, cfg.norm, gd),
+            "ln2": norm_init(cfg.d_model, cfg.norm, gd),
+            "attn": attn_init(generator, cfg.d_model, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
+                              cfg.qkv_bias, L),
+            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, L),
+        })
+    params["final_ln"] = norm_init(cfg.d_model, cfg.norm, gd)
+    params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
+                                   std=1.0 / math.sqrt(cfg.d_model))
+    return tree_map(lambda t: t.to(device), params)
+
+
+def tree_map(fn, tree):
+    """Apply ``fn`` to every tensor of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def init_cache(cfg: LMConfig, B: int, S: int, device=None) -> List[dict]:
+    """Zeroed (B, S, Hkv, d) bf16 K/V per layer."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    shp = (B, S, cfg.n_kv_heads, cfg.d_head)
+    return [{"k": torch.zeros(shp, dtype=torch.bfloat16, device=device),
+             "v": torch.zeros(shp, dtype=torch.bfloat16, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
+def _block_rest(h, lp, cfg: LMConfig, qcfg: QuantConfig, a):
+    h = h + a
+    hn2 = apply_norm(lp["ln2"], h, qcfg, cfg.norm)
+    return h + mlp_apply(lp["mlp"], hn2, qcfg, cfg.act)
+
+
+def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
+               qcfg: QuantConfig, max_len: int,
+               logit_positions: Optional[torch.Tensor] = None):
+    """One full forward over (B, T) prompts that also builds the decode
+    cache.  Returns (logits (B, vocab) at ``logit_positions`` — the true
+    prompt ends, default T-1 — and the per-layer cache)."""
+    check_supported(cfg)
+    B, T = tokens.shape
+    h = embed_lookup(params["embed"], tokens)
+    positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
+    spec = cfg.attn_spec(cache_len=max_len)
+    caches = []
+    for lp in params["layers"]:
+        hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
+        a, c = attention_prefill(lp["attn"], hn, qcfg=qcfg,
+                                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                 d_head=cfg.d_head, positions=positions,
+                                 spec=spec, rope_theta=cfg.rope_theta)
+        h = _block_rest(h, lp, cfg, qcfg, a)
+        caches.append(c)
+    h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
+    if logit_positions is None:
+        logit_positions = torch.full((B,), T - 1, dtype=torch.long,
+                                     device=tokens.device)
+    h_last = h[torch.arange(B, device=tokens.device), logit_positions]
+    return qdense(params["lm_head"], h_last, qcfg), caches
+
+
+def lm_decode_step(params, cache: List[dict], tok: torch.Tensor,
+                   pos: torch.Tensor, cfg: LMConfig, qcfg: QuantConfig):
+    """One decode step.  tok (B, 1) int; pos (B,) per-row positions (a
+    scalar broadcasts).  Writes the new K/V into ``cache`` in place and
+    returns (logits (B, vocab), cache)."""
+    check_supported(cfg)
+    B = tok.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.long, device=tok.device)
+    pos = pos.expand(B) if pos.ndim == 0 else pos
+    h = embed_lookup(params["embed"], tok)
+    for lp, lc in zip(params["layers"], cache):
+        hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
+        a, _ = attention_decode(lp["attn"], hn, lc, qcfg=qcfg,
+                                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                                d_head=cfg.d_head, pos=pos,
+                                rope_theta=cfg.rope_theta)
+        h = _block_rest(h, lp, cfg, qcfg, a)
+    h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
+    return qdense(params["lm_head"], h[:, 0], qcfg), cache
