@@ -1,4 +1,4 @@
-"""Load parameters of the JAX reference into the port.
+"""Move parameters between the JAX reference's layout and the port's.
 
 ``params_from_jax(tree, cfg)`` takes either the reference's parameter tree
 as numpy arrays (``jax.tree.map(np.asarray, params)``) or the flat dict of
@@ -8,6 +8,13 @@ reference stacks layers by scan group, ``blocks[g]["b{j}"][n_rep, ...]``;
 layer ``i`` of the port is entry ``r`` of group ``g``, block ``j``, in plan
 order.  Every reference leaf must be used exactly once: a missing leaf,
 a shape that differs, or a leaf left over raises.
+
+``params_to_jax(params, cfg)`` is the inverse: the reference's stacked
+tree with CPU tensors as leaves (``.numpy()`` of an fp32 leaf is what
+``jax.numpy.asarray`` takes).  ``lm_checkpoint_layout(cfg)`` applies the
+pair to a Trainer's whole {"params", "opt"} tree (the AdamW moments and
+masters have the parameters' structure), so the port writes and reads
+the reference's checkpoints.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ import torch
 from repro_torch.devices import resolve_device
 from repro_torch.models import LMConfig, block_plan, check_supported
 
-__all__ = ["params_from_jax", "param_shapes"]
+__all__ = ["params_from_jax", "params_to_jax", "param_shapes",
+           "lm_checkpoint_layout"]
 
 _BF16 = "BF16::"
 _KEY = re.compile(r"\[(?:'([^']*)'|(\d+))\]")
@@ -76,6 +84,8 @@ def _parse_keystr(key: str) -> Tuple:
 
 
 def _to_tensor(arr) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):
+        return arr
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
@@ -139,3 +149,48 @@ def params_from_jax(tree_or_npz, cfg: LMConfig, device=None) -> dict:
         raise ValueError(f"reference leaves not used by the port: "
                          f"{sorted(map(str, flat))}")
     return params
+
+
+def params_to_jax(params, cfg: LMConfig) -> dict:
+    """The reference's parameter tree (layers stacked by scan group,
+    ``blocks[g]["b{j}"][n_rep, ...]``) with the port's tensors, on the CPU
+    and in their own dtypes."""
+    check_supported(cfg)
+    out = {k: {kk: vv.detach().cpu() for kk, vv in params[k].items()}
+           for k in ("embed", "final_ln", "lm_head")}
+    layers = params["layers"]
+    blocks, i = [], 0
+    for pattern, n_rep in block_plan(cfg):
+        group = {}
+        for j in range(len(pattern)):
+            reps = [layers[i + r * len(pattern) + j] for r in range(n_rep)]
+            group[f"b{j}"] = _stack(reps)
+        blocks.append(group)
+        i += n_rep * len(pattern)
+    out["blocks"] = blocks
+    return out
+
+
+def _stack(trees):
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack([t.detach().cpu() for t in trees])
+
+
+def lm_checkpoint_layout(cfg: LMConfig, device=None):
+    """(to_ref, from_ref) for a Trainer's {"params", "opt"} tree: the
+    parameters and the AdamW ``m``, ``v`` and ``master`` trees go to and
+    from the reference's stacked layout; ``count`` stays as it is.
+    ``from_ref`` places the tensors on ``device`` (default ``cuda``)."""
+    def to_ref(tree):
+        opt = {k: (params_to_jax(v, cfg) if k in ("m", "v", "master")
+                   else v) for k, v in tree["opt"].items()}
+        return {"params": params_to_jax(tree["params"], cfg), "opt": opt}
+
+    def from_ref(tree):
+        opt = {k: (params_from_jax(v, cfg, device)
+                   if k in ("m", "v", "master") else v)
+               for k, v in tree["opt"].items()}
+        return {"params": params_from_jax(tree["params"], cfg, device),
+                "opt": opt}
+    return to_ref, from_ref

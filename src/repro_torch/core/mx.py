@@ -20,7 +20,7 @@ from .formats import (SCALE_EMAX, SCALE_EMIN, ElementFormat, exp2_int,
                       floor_log2, quantize_elem)
 
 __all__ = ["quantize_mx", "block_reshape", "block_unreshape",
-           "shared_exponent", "MX_BLOCK"]
+           "shared_exponent", "mx_stats", "MX_BLOCK"]
 
 MX_BLOCK = 32
 
@@ -87,3 +87,29 @@ def quantize_mx(x: torch.Tensor, fmt: Optional[ElementFormat], axis: int = -1,
     yb = quantize_elem(xb / scale, fmt) * scale
     y = block_unreshape(yb, axis, n)
     return (xf + (y - xf).detach()).to(x.dtype)
+
+
+def mx_stats(x: torch.Tensor, fmt: ElementFormat, axis: int = -1,
+             block: int = MX_BLOCK, scale_mode: str = "floor") -> dict:
+    """Clamping diagnostics of the paper's Fig. 5 / Eq. 10, as 0-d fp32
+    tensors (``repro.core.mx.mx_stats``): ``overflow_frac`` (|v/X| above
+    max_normal), ``last_bin_frac`` (values that land on +-max_normal),
+    ``tight_block_frac`` (blocks whose every value lands there) and
+    ``rel_err`` (mean |y - x| / (|x| + 1e-12)); padded lanes excluded."""
+    xf = x.detach().to(torch.float32)
+    xb, n = block_reshape(xf, axis, block)
+    mask = (torch.arange(xb.shape[-1] * xb.shape[-2], device=xb.device)
+            .reshape(xb.shape[-2:]) < n).expand(xb.shape)
+    scale = exp2_int(shared_exponent(xb, fmt, scale_mode))
+    r = xb / scale
+    q = quantize_elem(r, fmt)
+    total = torch.clamp(mask.sum(), min=1).to(torch.float32)
+    overflow = ((r.abs() > fmt.max_normal) & mask).sum() / total
+    last_bin = (q.abs() >= fmt.max_normal) & mask
+    tight = torch.all(last_bin | ~mask, dim=-1) & torch.any(mask, dim=-1)
+    y = q * scale
+    rel_err = torch.sum((y - xb).abs() / (xb.abs() + 1e-12) * mask) / total
+    return {"overflow_frac": overflow,
+            "last_bin_frac": last_bin.sum() / total,
+            "tight_block_frac": tight.to(torch.float32).mean(),
+            "rel_err": rel_err}

@@ -1,22 +1,25 @@
 """MX-quantized contractions: the single entry point ``mx_contract``.
 
-Counterpart of ``repro.core.qlinear`` for the serving slice, with the kinds
+Counterpart of ``repro.core.qlinear``, with the kinds
 
-  "dense"        x (..., K) @ W (K, N), both quantized along K.  Uses the
-                 MX GEMM kernel when some operand format is set; with both
-                 operands bf16 it is a plain matmul with fp32 accumulation
-                 and bf16 output, as the reference's ``_mm``.
+  "dense"        x (..., K) @ W (K, N).  Forward, dgrad and wgrad each
+                 quantize along their own contraction axis (K, N, tokens)
+                 and use the MX GEMM kernels (forward, dgrad, wgrad) when
+                 some operand format of that GEMM is set; with both
+                 operands raw it is a plain matmul with fp32 accumulation,
+                 as the reference's ``_mm``.
   "flash_attn"   the fused QK^T / online softmax / PV forward on the folded
                  layout q (BH,G,Tq,d) x (k (BH,Tk,d), v (BH,Tk,dv)); masks
-                 and tiles come from an AttnSpec.  Uses the flash kernel in
-                 bf16 mode too (no operand format needed).
+                 and tiles come from an AttnSpec.  Uses the flash kernels
+                 (forward and dgrad) in bf16 mode too.
   "attn_decode"  the Tq = 1 shape q (BH,G,d) against a cache with a
                  validity mask (see ``kernels.ops.mx_attention_decode``).
 
 Dispatch follows the tensor's device: the kernel wrappers launch the CUDA
 kernels for CUDA tensors and run the plain versions for CPU tensors.  The
-"dense" and "flash_attn" kinds are ``torch.autograd.Function``s whose
-backward belongs to the training slice and raises until it is ported.
+"dense" and "flash_attn" kinds are ``torch.autograd.Function``s; the
+backward is the reference's custom VJP, with straight-through gradients
+through every quantizer.
 """
 from __future__ import annotations
 
@@ -29,10 +32,6 @@ from .attnspec import AttnSpec
 from .qconfig import QuantConfig
 
 __all__ = ["mx_contract"]
-
-_TRAINING = ("the backward kernels (dgrad, wgrad and the flash dgrad) belong "
-             "to the training slice of the port, which is not ported yet")
-
 
 def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     """Matmul with fp32 accumulation rounded once to ``out_dtype``.  cuBLAS
@@ -47,31 +46,87 @@ def _attn_fmt(cfg: QuantConfig):
     return cfg.a_fwd if cfg.attn else None
 
 
+def _kernel_gemm(dtype, fmt_a, fmt_b) -> bool:
+    """Whether a GEMM goes to an MX GEMM kernel: some operand is quantized,
+    and an fp32 product has both quantized (MX values are exact in the
+    kernels' bf16 tiles; a raw fp32 operand is not)."""
+    if fmt_a is None and fmt_b is None:
+        return False
+    return dtype == torch.bfloat16 or (fmt_a is not None
+                                       and fmt_b is not None)
+
+
+def _gemm(kernel, product, a, b, fmt_a, fmt_b, axes, cfg: QuantConfig):
+    """One GEMM of the dense contraction: the MX kernel when
+    ``_kernel_gemm`` says so, else ``product`` of the operands quantized
+    along ``axes`` (the quantize kernel on CUDA), as the reference's
+    emulation path (``quantize_mx`` then ``_mm``)."""
+    if _kernel_gemm(a.dtype, fmt_a, fmt_b):
+        return kernel(a, b, fmt_a, fmt_b, block=cfg.block,
+                      scale_mode=cfg.scale_mode)
+    return product(*(ops.mx_quantize(t, f, axis=ax, block=cfg.block,
+                                     scale_mode=cfg.scale_mode)
+                     for t, f, ax in zip((a, b), (fmt_a, fmt_b), axes)))
+
+
 class _Dense(torch.autograd.Function):
+    """forward  y  = Q[a_fwd](x) @ Q[w_fwd](W)      blocks along K
+       dgrad    dx = Q[g_bwd](dy) @ Q[w_bwd](W)^T   blocks along N
+       wgrad    dW = Q[a_bwd](x)^T @ Q[g_bwd](dy)   blocks along tokens
+    (``repro.core.qlinear._dense_fwd`` / ``_dense_bwd``)."""
+
     @staticmethod
     def forward(ctx, x, w, cfg: QuantConfig):
-        if cfg.a_fwd is None and cfg.w_fwd is None:
-            return _mm(x, w, x.dtype)
-        return ops.mx_matmul(x, w, cfg.a_fwd, cfg.w_fwd, block=cfg.block,
-                             scale_mode=cfg.scale_mode).to(x.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.cfg = cfg
+        return _gemm(ops.mx_matmul, lambda a, b: _mm(a, b, x.dtype), x, w,
+                     cfg.a_fwd, cfg.w_fwd, (-1, 0), cfg).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(f'mx_contract(kind="dense"): {_TRAINING}')
+        x, w = ctx.saved_tensors
+        cfg = ctx.cfg
+        K, N = w.shape
+        dyf = dy.reshape(-1, N)
+        xf = x.reshape(-1, K)
+        dx = dw = None
+        if not cfg.quantize_bwd:
+            if ctx.needs_input_grad[0]:
+                dx = _mm(dy, w.T, x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _mm(xf.T, dyf, w.dtype)
+            return dx, dw, None
+        if ctx.needs_input_grad[0]:
+            dx = _gemm(ops.mx_matmul_dgrad,
+                       lambda g, ww: _mm(g, ww.T, x.dtype), dy, w, cfg.g_bwd,
+                       cfg.w_bwd, (-1, 1), cfg).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _gemm(ops.mx_matmul_wgrad, lambda a, g: _mm(a.T, g, w.dtype),
+                       xf, dyf, cfg.a_bwd, cfg.g_bwd, (0, 0), cfg).to(w.dtype)
+        return dx, dw, None
 
 
 class _Flash(torch.autograd.Function):
+    """Flash forward saving (q, k, v, out, lse); the backward is the flash
+    dgrad (``repro.core.qlinear._flash_fwd`` / ``_flash_bwd``)."""
+
     @staticmethod
     def forward(ctx, q, k, v, cfg: QuantConfig, spec: AttnSpec):
-        out, _ = ops.mx_flash_attention(q, k, v, _attn_fmt(cfg), spec,
-                                        block=cfg.block,
-                                        scale_mode=cfg.scale_mode)
+        out, lse = ops.mx_flash_attention(q, k, v, _attn_fmt(cfg), spec,
+                                          block=cfg.block,
+                                          scale_mode=cfg.scale_mode)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.cfg, ctx.spec = cfg, spec
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(
-            f'mx_contract(kind="flash_attn"): {_TRAINING}')
+        q, k, v, out, lse = ctx.saved_tensors
+        cfg = ctx.cfg
+        dq, dk, dv = ops.mx_flash_attention_bwd(
+            q, k, v, dout, out, lse, _attn_fmt(cfg), ctx.spec,
+            block=cfg.block, scale_mode=cfg.scale_mode)
+        return dq, dk, dv, None, None
 
 
 def mx_contract(lhs, rhs, cfg: QuantConfig, *, kind: str = "dense",

@@ -29,7 +29,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
-SOURCES = ("mx_quant", "mx_matmul", "mx_attention")
+SOURCES = ("mx_quant", "mx_matmul", "mx_matmul_bwd", "mx_attention",
+           "mx_attention_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILD_SECONDS: Optional[float] = None

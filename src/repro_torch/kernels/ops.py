@@ -7,6 +7,11 @@ CUDA tensors it launches the kernel or raises (there is no fallback).  The
 kernels implement the "floor" scale rule only, as the Pallas kernels do;
 other scale modes raise ``NotImplementedError`` on CUDA.
 
+``mx_quantize`` is a ``torch.autograd.Function`` whose backward is the
+identity (the reference's straight-through estimator); the GEMM and
+attention wrappers are called inside the ``mx_contract`` autograd
+Functions and carry no graph of their own.
+
 Counterpart of ``repro.kernels.ops``.
 """
 from __future__ import annotations
@@ -22,13 +27,16 @@ from repro_torch.core.formats import ElementFormat
 from repro_torch.core.mx import MX_BLOCK
 from . import build, ref
 
-__all__ = ["mx_quantize", "mx_matmul", "mx_flash_attention",
+__all__ = ["mx_quantize", "mx_matmul", "mx_matmul_dgrad", "mx_matmul_wgrad",
+           "mx_flash_attention", "mx_flash_attention_bwd",
            "mx_attention_decode", "LAUNCHES", "reset_launches", "KERNELS"]
 
 #: Launch count of each kernel: one per launch, counted only where the
 #: kernel is launched (never for the plain versions).
 LAUNCHES: Dict[str, int] = {"mx_quantize": 0, "mx_matmul": 0,
+                            "mx_matmul_dgrad": 0, "mx_matmul_wgrad": 0,
                             "mx_flash_attention": 0,
+                            "mx_flash_attention_bwd": 0,
                             "mx_attention_decode": 0}
 
 #: name -> (source file, the Pallas function it replaces)
@@ -37,8 +45,15 @@ KERNELS = {
                     "src/repro/kernels/mx_quant.py:66"),
     "mx_matmul": ("src/repro_torch/kernels/csrc/mx_matmul.cu",
                   "src/repro/kernels/mx_matmul.py:63"),
+    "mx_matmul_dgrad": ("src/repro_torch/kernels/csrc/mx_matmul_bwd.cu",
+                        "src/repro/kernels/mx_matmul_bwd.py:73"),
+    "mx_matmul_wgrad": ("src/repro_torch/kernels/csrc/mx_matmul_bwd.cu",
+                        "src/repro/kernels/mx_matmul_bwd.py:142"),
     "mx_flash_attention": ("src/repro_torch/kernels/csrc/mx_attention.cu",
                            "src/repro/kernels/mx_attention.py:156"),
+    "mx_flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/mx_attention_bwd.cu",
+        "src/repro/kernels/mx_attention.py:275"),
     "mx_attention_decode": ("src/repro_torch/kernels/csrc/mx_attention.cu",
                             "src/repro/kernels/mx_attention.py:455"),
 }
@@ -48,13 +63,20 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _FMT = [_I, _I, _I, _F]
 _SIGNATURES = {
     "mx_quantize_lastdim": ("mx_quant", [_P, _P, _LL, _I, _I, *_FMT, _P]),
-    "mx_matmul_bf16": ("mx_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, *_FMT,
-                                     _I, *_FMT, _P]),
+    "mx_matmul": ("mx_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _I, *_FMT,
+                                _I, *_FMT, _P]),
     "mx_matmul_splits": ("mx_matmul", [_I, _I, _I]),
+    "mx_matmul_dgrad": ("mx_matmul_bwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          *_FMT, _I, *_FMT, _P]),
+    "mx_matmul_wgrad": ("mx_matmul_bwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                          *_FMT, _I, *_FMT, _P]),
+    "mx_matmul_bwd_splits": ("mx_matmul_bwd", [_I, _I, _I]),
     "mx_decode_smem_bytes": ("mx_attention", [_I, _I, _I, _I]),
     "mx_flash_fwd": ("mx_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _I, *_FMT, _F,
                                       _P]),
+    "mx_flash_bwd": ("mx_attention_bwd", [_P] * 10 + [_I] * 11 + [*_FMT, _F,
+                                                                 _P]),
     "mx_attn_decode": ("mx_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
                                         _LL, _I, *_FMT, _F, _P]),
@@ -109,24 +131,70 @@ def _check_mx(name: str, fmt, block: int, scale_mode: str) -> None:
             f"not {block}")
 
 
+class _Quantize(torch.autograd.Function):
+    """Quantize-dequantize with the straight-through gradient: the backward
+    is the identity in x's dtype, as the reference's
+    ``xf + stop_gradient(y - xf)``."""
+
+    @staticmethod
+    def forward(ctx, x, fmt, axis, block, scale_mode):
+        if not x.is_cuda:
+            return ref.mx_quantize_ref(x, fmt, axis, block, scale_mode)
+        _check_mx("mx_quantize", fmt, block, scale_mode)
+        if x.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"mx_quantize: float32 or bfloat16, got "
+                            f"{x.dtype}")
+        xm = torch.movedim(x, axis, -1).contiguous()
+        y = torch.empty_like(xm)
+        K = xm.shape[-1]
+        M = xm.numel() // max(K, 1)
+        _launch("mx_quantize", "mx_quantize_lastdim", xm.data_ptr(),
+                y.data_ptr(), M, K, int(x.dtype == torch.bfloat16),
+                *_fmt_args(fmt))
+        return torch.movedim(y, -1, axis)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None, None, None
+
+
 def mx_quantize(x: torch.Tensor, fmt: Optional[ElementFormat],
                 axis: int = -1, block: int = MX_BLOCK,
                 scale_mode: str = "floor") -> torch.Tensor:
-    """Quantize-dequantize along ``axis`` for any rank (fp32 or bf16)."""
+    """Quantize-dequantize along ``axis`` for any rank (fp32 or bf16), with
+    the straight-through gradient."""
     if fmt is None:
         return x
-    if not x.is_cuda:
-        return ref.mx_quantize_ref(x, fmt, axis, block, scale_mode)
-    _check_mx("mx_quantize", fmt, block, scale_mode)
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"mx_quantize: float32 or bfloat16, got {x.dtype}")
-    xm = torch.movedim(x, axis, -1).contiguous()
-    y = torch.empty_like(xm)
-    K = xm.shape[-1]
-    M = xm.numel() // max(K, 1)
-    _launch("mx_quantize", "mx_quantize_lastdim", xm.data_ptr(), y.data_ptr(),
-            M, K, int(x.dtype == torch.bfloat16), *_fmt_args(fmt))
-    return torch.movedim(y, -1, axis)
+    return _Quantize.apply(x, fmt, axis, block, scale_mode)
+
+
+def _check_gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_a,
+                fmt_b, block: int, scale_mode: str) -> int:
+    """Common checks of the GEMM wrappers; returns the is_fp32 flag."""
+    _check_cuda(name, a, b)
+    _check_mx(name, fmt_a, block, scale_mode)
+    _check_mx(name, fmt_b, block, scale_mode)
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: bfloat16 or float32 operands of one dtype, "
+                        f"got {a.dtype}, {b.dtype}")
+    if a.dtype == torch.float32 and (fmt_a is None or fmt_b is None):
+        raise TypeError(f"{name}: float32 operands must both be MX-quantized "
+                        "(the tensor-core path holds operands in bf16, which "
+                        "is exact only for MX values)")
+    return int(a.dtype == torch.float32)
+
+
+def _workspace(splits: int, rows: int, cols: int, device):
+    """fp32 split-K partials, summed by the kernel's second pass (one
+    launch of the wrapper, counted once)."""
+    if splits <= 1:
+        return None
+    return torch.empty((splits, rows, cols), dtype=torch.float32,
+                       device=device)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def mx_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -136,12 +204,8 @@ def mx_matmul(a: torch.Tensor, b: torch.Tensor,
     """``Q(a) (..., K) @ Q(b) (K, N)`` with fp32 accumulation, in a.dtype."""
     if not a.is_cuda:
         return ref.mx_matmul_ref(a, b, fmt_a, fmt_b, block, scale_mode)
-    _check_cuda("mx_matmul", a, b)
-    _check_mx("mx_matmul", fmt_a, block, scale_mode)
-    _check_mx("mx_matmul", fmt_b, block, scale_mode)
-    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
-        raise TypeError(f"mx_matmul: bfloat16 operands, got {a.dtype}, "
-                        f"{b.dtype}")
+    is_fp32 = _check_gemm("mx_matmul", a, b, fmt_a, fmt_b, block,
+                          scale_mode)
     if b.ndim != 2 or a.shape[-1] != b.shape[0]:
         raise ValueError(f"mx_matmul: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
@@ -149,17 +213,66 @@ def mx_matmul(a: torch.Tensor, b: torch.Tensor,
     a2 = a.reshape(-1, K).contiguous()
     b = b.contiguous()
     M = a2.shape[0]
-    c = torch.empty((M, N), dtype=torch.bfloat16, device=a.device)
-    # Split-K scratch: the kernel sums the fp32 partials in a second pass
-    # (one launch of the wrapper, counted once).
-    splits = _fn("mx_matmul_splits")(M, N, K)
-    work = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
-            if splits > 1 else None)
-    _launch("mx_matmul", "mx_matmul_bf16", a2.data_ptr(), b.data_ptr(),
-            c.data_ptr(), None if work is None else work.data_ptr(), M, N, K,
-            int(fmt_a is not None),
-            *_fmt_args(fmt_a), int(fmt_b is not None), *_fmt_args(fmt_b))
+    c = torch.empty((M, N), dtype=a.dtype, device=a.device)
+    work = _workspace(_fn("mx_matmul_splits")(M, N, K), M, N, a.device)
+    _launch("mx_matmul", "mx_matmul", a2.data_ptr(), b.data_ptr(),
+            c.data_ptr(), _ptr(work), M, N, K, is_fp32,
+            int(fmt_a is not None), *_fmt_args(fmt_a),
+            int(fmt_b is not None), *_fmt_args(fmt_b))
     return c.reshape(a.shape[:-1] + (N,))
+
+
+def mx_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
+                    fmt_g: Optional[ElementFormat],
+                    fmt_w: Optional[ElementFormat], block: int = MX_BLOCK,
+                    scale_mode: str = "floor") -> torch.Tensor:
+    """dgrad ``Q(dy) (..., N) @ Q(w)^T`` with w in its forward (K, N)
+    layout, both blocked along N; fp32 accumulation, in dy.dtype."""
+    if not dy.is_cuda:
+        return ref.mx_matmul_dgrad_ref(dy, w, fmt_g, fmt_w, block,
+                                       scale_mode)
+    is_fp32 = _check_gemm("mx_matmul_dgrad", dy, w, fmt_g, fmt_w, block,
+                          scale_mode)
+    if w.ndim != 2 or dy.shape[-1] != w.shape[1]:
+        raise ValueError(f"mx_matmul_dgrad: shapes {tuple(dy.shape)}, "
+                         f"{tuple(w.shape)}")
+    K, N = w.shape
+    dy2 = dy.reshape(-1, N).contiguous()
+    w = w.contiguous()
+    M = dy2.shape[0]
+    dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
+    work = _workspace(_fn("mx_matmul_bwd_splits")(M, K, N), M, K, dy.device)
+    _launch("mx_matmul_dgrad", "mx_matmul_dgrad", dy2.data_ptr(),
+            w.data_ptr(), dx.data_ptr(), _ptr(work), M, N, K, is_fp32,
+            int(fmt_g is not None), *_fmt_args(fmt_g),
+            int(fmt_w is not None), *_fmt_args(fmt_w))
+    return dx.reshape(dy.shape[:-1] + (K,))
+
+
+def mx_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                    fmt_a: Optional[ElementFormat],
+                    fmt_g: Optional[ElementFormat], block: int = MX_BLOCK,
+                    scale_mode: str = "floor") -> torch.Tensor:
+    """wgrad ``Q(x)^T @ Q(dy)`` for x (T, K) and dy (T, N), both blocked
+    along the token axis T; fp32 accumulation, (K, N) in x.dtype."""
+    if not x.is_cuda:
+        return ref.mx_matmul_wgrad_ref(x, dy, fmt_a, fmt_g, block,
+                                       scale_mode)
+    is_fp32 = _check_gemm("mx_matmul_wgrad", x, dy, fmt_a, fmt_g, block,
+                          scale_mode)
+    if x.ndim != 2 or dy.ndim != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"mx_matmul_wgrad: shapes {tuple(x.shape)}, "
+                         f"{tuple(dy.shape)}")
+    T, K = x.shape
+    N = dy.shape[1]
+    x, dy = x.contiguous(), dy.contiguous()
+    dw = torch.empty((K, N), dtype=x.dtype, device=x.device)
+    work = _workspace(_fn("mx_matmul_bwd_splits")(K, N, T), K, N, x.device)
+    _launch("mx_matmul_wgrad", "mx_matmul_wgrad", x.data_ptr(),
+            dy.data_ptr(), dw.data_ptr(), _ptr(work), T, K, N, is_fp32,
+            int(fmt_a is not None), *_fmt_args(fmt_a),
+            int(fmt_g is not None), *_fmt_args(fmt_g))
+    return dw
 
 
 def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -194,6 +307,56 @@ def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv, _KIND[spec.kind], spec.window, spec.q_offset, tile_k,
             int(fmt is not None), *_fmt_args(fmt), 1.0 / math.sqrt(d))
     return out, lse
+
+
+def mx_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, dout: torch.Tensor,
+                           out: torch.Tensor, lse: torch.Tensor,
+                           fmt: Optional[ElementFormat], spec: AttnSpec,
+                           block: int = MX_BLOCK, scale_mode: str = "floor",
+                           out_dtype: Optional[torch.dtype] = None):
+    """Flash dgrad on the folded layout -> (dq, dk, dv), in the operands'
+    dtype, or all in ``out_dtype`` (bf16 or fp32) when given."""
+    if not q.is_cuda:
+        return ref.mx_flash_attention_bwd_ref(q, k, v, dout, out, lse, fmt,
+                                              spec, block, scale_mode,
+                                              out_dtype)
+    _check_cuda("mx_flash_attention_bwd", q, k, v, dout, out, lse)
+    _check_mx("mx_flash_attention_bwd", fmt, block, scale_mode)
+    if spec.kind not in _KIND:
+        raise NotImplementedError(
+            f"mx_flash_attention_bwd: mask kind {spec.kind!r}")
+    if {q.dtype, k.dtype, v.dtype, dout.dtype, out.dtype} != {
+            torch.bfloat16} or lse.dtype != torch.float32:
+        raise TypeError("mx_flash_attention_bwd: bfloat16 q, k, v, dout and "
+                        "out, float32 lse")
+    BH, G, Tq, d = q.shape
+    Tk, dv = k.shape[1], v.shape[-1]
+    if (k.shape != (BH, Tk, d) or v.shape[:2] != (BH, Tk)
+            or dout.shape != (BH, G, Tq, dv) or out.shape != dout.shape
+            or lse.shape != (BH, G, Tq)):
+        raise ValueError(f"mx_flash_attention_bwd: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(dout.shape)}, {tuple(lse.shape)}")
+    if d > 128 or dv > 128:
+        raise NotImplementedError("mx_flash_attention_bwd: head dims up to "
+                                  "128")
+    odt = out_dtype or torch.bfloat16
+    if odt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"mx_flash_attention_bwd: out_dtype {odt}")
+    q, k, v, dout, out, lse = (t.contiguous()
+                               for t in (q, k, v, dout, out, lse))
+    delta = torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=odt, device=q.device)
+    dk = torch.empty(k.shape, dtype=odt, device=q.device)
+    dvv = torch.empty(v.shape, dtype=odt, device=q.device)
+    _launch("mx_flash_attention_bwd", "mx_flash_bwd", q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dvv.data_ptr(), BH, G, Tq, Tk, d, dv, _KIND[spec.kind],
+            spec.window, spec.q_offset, int(odt == torch.float32),
+            int(fmt is not None), *_fmt_args(fmt), 1.0 / math.sqrt(d))
+    return dq, dk, dvv
 
 
 def mx_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -7,7 +7,7 @@ op (same tiling, same masks), so on the CPU they agree with the JAX oracles
 bitwise for the quantizer and to fp32 accumulation order elsewhere.
 
 Layouts are the reference's folded ones:
-    q (BH, G, Tq, d), k (BH, Tk, d), v (BH, Tk, dv)   flash forward
+    q (BH, G, Tq, d), k (BH, Tk, d), v (BH, Tk, dv)   flash forward/backward
     q (BH, G, d),     k (BH, S, d),  v (BH, S, dv)    decode
 The decode version also takes the KV cache in its model layout
 (B, S, Hkv, d) with a (B, S) mask, which it folds first.
@@ -24,9 +24,11 @@ from repro_torch.core.attnspec import AttnSpec
 from repro_torch.core.formats import ElementFormat
 from repro_torch.core.mx import MX_BLOCK, quantize_mx
 
-__all__ = ["mx_quantize_ref", "mx_matmul_ref", "mx_flash_attention_ref",
-           "mx_attention_decode_ref", "attn_tile_mask", "attn_tile_needed",
-           "attn_tiles", "fold_cache", "NEG_INF"]
+__all__ = ["mx_quantize_ref", "mx_matmul_ref", "mx_matmul_dgrad_ref",
+           "mx_matmul_wgrad_ref", "mx_flash_attention_ref",
+           "mx_flash_attention_bwd_ref", "mx_attention_decode_ref",
+           "attn_tile_mask", "attn_tile_needed", "attn_tiles", "fold_cache",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -48,6 +50,30 @@ def mx_matmul_ref(a: torch.Tensor, b: torch.Tensor,
     aq = quantize_mx(a, fmt_a, axis=-1, block=block, scale_mode=scale_mode)
     bq = quantize_mx(b, fmt_b, axis=0, block=block, scale_mode=scale_mode)
     return torch.matmul(aq.float(), bq.float()).to(a.dtype)
+
+
+def mx_matmul_dgrad_ref(dy: torch.Tensor, w: torch.Tensor,
+                        fmt_g: Optional[ElementFormat],
+                        fmt_w: Optional[ElementFormat],
+                        block: int = MX_BLOCK,
+                        scale_mode: str = "floor") -> torch.Tensor:
+    """dgrad ``Q(dy) (..., N) @ Q(w)^T`` with w in its forward (K, N)
+    layout, both quantized along N; fp32 accumulation, out in dy.dtype."""
+    dyq = quantize_mx(dy, fmt_g, axis=-1, block=block, scale_mode=scale_mode)
+    wq = quantize_mx(w, fmt_w, axis=1, block=block, scale_mode=scale_mode)
+    return torch.matmul(dyq.float(), wq.float().T).to(dy.dtype)
+
+
+def mx_matmul_wgrad_ref(x: torch.Tensor, dy: torch.Tensor,
+                        fmt_a: Optional[ElementFormat],
+                        fmt_g: Optional[ElementFormat],
+                        block: int = MX_BLOCK,
+                        scale_mode: str = "floor") -> torch.Tensor:
+    """wgrad ``Q(x)^T (K, T) @ Q(dy) (T, N)``, both quantized along the
+    token axis T; fp32 accumulation, out in x.dtype."""
+    xq = quantize_mx(x, fmt_a, axis=0, block=block, scale_mode=scale_mode)
+    dyq = quantize_mx(dy, fmt_g, axis=0, block=block, scale_mode=scale_mode)
+    return torch.matmul(xq.float().T, dyq.float()).to(x.dtype)
 
 
 def attn_tile_mask(spec: AttnSpec, qi: int, kj: int, tile_q: int,
@@ -143,6 +169,63 @@ def mx_flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.cat(outs, dim=2)[:, :, :Tq]
     lse = torch.cat(lses, dim=2)[:, :, :Tq]
     return out, lse
+
+
+def mx_flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, dout: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor,
+                               fmt: Optional[ElementFormat], spec: AttnSpec,
+                               block: int = MX_BLOCK,
+                               scale_mode: str = "floor", out_dtype=None):
+    """Flash dgrad -> (dq, dk, dv).  p is recomputed from the *quantized*
+    scores (q and k blocked along d) and the stashed lse; the gradient
+    products are straight-through (raw v in dp, raw p in dV, raw k in dQ,
+    raw q in dK).  Tiles and the skip rule are the reference's; dQ sums
+    over kv tiles, dK/dV over q tiles per g, then over G.  Grads come back
+    in the operands' dtypes, or all in ``out_dtype`` when given."""
+    BH, G, Tq, d = q.shape
+    Tk = k.shape[1]
+    tile_q, tile_k, nq, nk = attn_tiles(spec, Tq, Tk)
+    scale = 1.0 / math.sqrt(d)
+    dof = dout.float()
+    delta = torch.sum(dof * out.float(), dim=-1)
+    qp = _pad_axis(q.float(), 2, nq * tile_q)
+    dop = _pad_axis(dof, 2, nq * tile_q)
+    lsep = _pad_axis(lse.float(), 2, nq * tile_q)
+    dlp = _pad_axis(delta, 2, nq * tile_q)
+    kp = _pad_axis(k.float(), 1, nk * tile_k)
+    vp = _pad_axis(v.float(), 1, nk * tile_k)
+    dq = torch.zeros_like(qp)
+    dk_g = q.new_zeros((BH, G) + kp.shape[1:], dtype=torch.float32)
+    dv_g = q.new_zeros((BH, G) + vp.shape[1:], dtype=torch.float32)
+
+    def Q(x):
+        return quantize_mx(x, fmt, axis=-1, block=block,
+                           scale_mode=scale_mode)
+
+    for qi in range(nq):
+        rows = slice(qi * tile_q, (qi + 1) * tile_q)
+        qt, dot = qp[:, :, rows], dop[:, :, rows]
+        lset, dlt = lsep[:, :, rows], dlp[:, :, rows]
+        qq = Q(qt)
+        for kj in range(nk):
+            if not attn_tile_needed(spec, qi, kj, tile_q, tile_k, Tk):
+                continue
+            cols = slice(kj * tile_k, (kj + 1) * tile_k)
+            kt, vt = kp[:, cols], vp[:, cols]
+            s = torch.einsum("bgqd,bkd->bgqk", qq, Q(kt)) * scale
+            valid = attn_tile_mask(spec, qi, kj, tile_q, tile_k, Tk,
+                                   q.device)
+            s = torch.where(valid, s, NEG_INF)
+            p = torch.where(valid, torch.exp(s - lset[..., None]), 0.0)
+            dp = torch.einsum("bgqd,bkd->bgqk", dot, vt)
+            ds = p * (dp - dlt[..., None]) * scale
+            dq[:, :, rows] += torch.einsum("bgqk,bkd->bgqd", ds, kt)
+            dv_g[:, :, cols] += torch.einsum("bgqk,bgqd->bgkd", p, dot)
+            dk_g[:, :, cols] += torch.einsum("bgqk,bgqd->bgkd", ds, qt)
+    dts = [out_dtype or t.dtype for t in (q, k, v)]
+    return (dq[:, :, :Tq].to(dts[0]), dk_g[:, :, :Tk].sum(1).to(dts[1]),
+            dv_g[:, :, :Tk].sum(1).to(dts[2]))
 
 
 def fold_cache(x: torch.Tensor) -> torch.Tensor:

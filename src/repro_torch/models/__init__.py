@@ -1,8 +1,12 @@
-"""Decoder LM for serving, in PyTorch (see ``repro.models``)."""
+"""Decoder LM and the student-teacher proxy, in PyTorch (see
+``repro.models``)."""
+from .proxy import (ProxyConfig, proxy_apply, proxy_batch, proxy_init,
+                    proxy_loss, teacher_init)
 from .transformer import (LMConfig, block_plan, check_supported, init_cache,
-                          lm_decode_step, lm_init, lm_prefill,
-                          prefill_supported, tree_map)
+                          lm_apply, lm_decode_step, lm_init, lm_loss,
+                          lm_prefill, prefill_supported, tree_map)
 
 __all__ = ["LMConfig", "block_plan", "check_supported", "init_cache",
-           "lm_decode_step", "lm_init", "lm_prefill", "prefill_supported",
-           "tree_map"]
+           "lm_apply", "lm_decode_step", "lm_init", "lm_loss", "lm_prefill",
+           "prefill_supported", "tree_map", "ProxyConfig", "proxy_apply",
+           "proxy_batch", "proxy_init", "proxy_loss", "teacher_init"]

@@ -1,9 +1,9 @@
 """Attention: MHA/GQA with QK-norm and RoPE, via ``mx_contract``.
 
-Counterpart of ``repro.models.attention`` for the dense serving path.
-Projections go through ``qdense`` (the MX GEMM kernel); mixing goes through
+Counterpart of ``repro.models.attention`` for dense attention.  Projections
+go through ``qdense`` (the MX GEMM kernels); mixing goes through
 ``mx_contract(kind="flash_attn")`` on the folded (BH, G, T, d) layout for
-prefill and ``kind="attn_decode"`` for one-token decode.  QK-norm is an
+training and prefill and ``kind="attn_decode"`` for one-token decode.  QK-norm is an
 RMSNorm without bias whatever ``cfg.norm`` says, and runs without the
 layer-norm quantization, as in the reference.
 """
@@ -16,7 +16,7 @@ import torch
 from repro_torch.core import AttnSpec, QuantConfig, mx_contract
 from .layers import apply_norm, dense_init, norm_init, qdense, rope
 
-__all__ = ["attn_init", "attention_decode", "attention_prefill",
+__all__ = ["attn_init", "attention", "attention_decode", "attention_prefill",
            "decode_valid_mask", "flash_attention"]
 
 
@@ -75,6 +75,18 @@ def flash_attention(q, k, v, qcfg: QuantConfig, spec: AttnSpec):
     qf, kf, vf = _fold(q, k, v)
     out = mx_contract(qf, (kf, vf), qcfg, kind="flash_attn", spec=spec)
     return _unfold(out, B, Hkv)
+
+
+def attention(p, x, *, qcfg: QuantConfig, n_heads: int, n_kv: int,
+              d_head: int, positions, spec: AttnSpec,
+              rope_theta: float = 1e4):
+    """The training attention layer: projections, flash attention (whose
+    backward is the flash dgrad) and the output projection, no cache."""
+    B, T = x.shape[:2]
+    q, k, v = _project_qkv(p, x, qcfg, n_heads, n_kv, d_head, positions,
+                           rope_theta)
+    o = flash_attention(q, k, v, qcfg, spec)
+    return qdense(p["wo"], o.reshape(B, T, n_heads * d_head), qcfg)
 
 
 def attention_prefill(p, x, *, qcfg: QuantConfig, n_heads: int, n_kv: int,

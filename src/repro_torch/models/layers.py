@@ -20,8 +20,8 @@ PARAM_DTYPE = torch.float32
 COMPUTE_DTYPE = torch.bfloat16
 
 __all__ = ["dense_init", "qdense", "norm_init", "apply_norm", "embed_init",
-           "embed_lookup", "rope", "trunc_normal", "PARAM_DTYPE",
-           "COMPUTE_DTYPE"]
+           "embed_lookup", "rope", "kaiming_uniform", "trunc_normal",
+           "PARAM_DTYPE", "COMPUTE_DTYPE"]
 
 
 def trunc_normal(shape, std: float, generator: torch.Generator
@@ -33,10 +33,32 @@ def trunc_normal(shape, std: float, generator: torch.Generator
     return t * std
 
 
+def kaiming_uniform(shape, generator: torch.Generator,
+                    fan_in: Optional[int] = None, gain: float = 1.0
+                    ) -> torch.Tensor:
+    """PyTorch-default init, U(-gain/sqrt(fan_in), +gain/sqrt(fan_in))
+    (the paper's proxy baseline, App. B); fan_in defaults to shape[-2]."""
+    fan_in = (fan_in or shape[-2]) if len(shape) >= 2 else shape[-1]
+    bound = gain / math.sqrt(fan_in)
+    t = torch.empty(shape, dtype=PARAM_DTYPE, device=generator.device)
+    return t.uniform_(-bound, bound, generator=generator)
+
+
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
-               std: Optional[float] = None, bias: bool = False):
-    p = {"w": trunc_normal((d_in, d_out), std or 1.0 / math.sqrt(d_in),
-                           generator)}
+               std: Optional[float] = None, bias: bool = False,
+               init: str = "trunc_normal"):
+    """``init``: "trunc_normal" (std, default 1/sqrt(d_in)),
+    "kaiming_uniform" or "xavier_lowgain" (normal, gain 0.5; App. B)."""
+    if init == "kaiming_uniform":
+        w = kaiming_uniform((d_in, d_out), generator, fan_in=d_in)
+    elif init == "xavier_lowgain":
+        std_x = 0.5 * math.sqrt(2.0 / (d_in + d_out))
+        w = torch.randn((d_in, d_out), generator=generator,
+                        dtype=PARAM_DTYPE, device=generator.device) * std_x
+    else:
+        w = trunc_normal((d_in, d_out), std or 1.0 / math.sqrt(d_in),
+                         generator)
+    p = {"w": w}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=PARAM_DTYPE,
                              device=generator.device)
@@ -84,9 +106,9 @@ def embed_init(generator: torch.Generator, vocab: int, d: int):
 
 
 def embed_lookup(p, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of the table in bf16 (gathering, then casting, gives the
-    reference's cast-then-gather values)."""
-    return p["table"][ids].to(COMPUTE_DTYPE)
+    """Rows of the table cast to bf16, cast first as in the reference, so
+    the table's gradient is summed over repeated ids in bf16 there too."""
+    return p["table"].to(COMPUTE_DTYPE)[ids]
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4

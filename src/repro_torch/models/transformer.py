@@ -1,4 +1,4 @@
-"""Decoder LM assembly for serving: prefill and one-token decode.
+"""Decoder LM assembly: training forward and loss, prefill and decode.
 
 Counterpart of ``repro.models.transformer`` for dense ``"attn"`` blocks.
 Parameters are a plain dict with per-layer entries:
@@ -10,7 +10,9 @@ where each ``block`` has the reference's per-block names (``ln1``, ``attn``,
 ``ln2``, ``mlp``).  Layer ``i`` is the reference's stacked group entry
 ``blocks[g]["b{j}"][r]`` in plan order (see ``convert.params_from_jax``).
 The decode cache is a list with one ``{"k", "v"}`` dict of
-(B, S, Hkv, d) bf16 tensors per layer, updated in place.
+(B, S, Hkv, d) bf16 tensors per layer, updated in place.  Layers run as a
+Python loop over that list; the reference's activation checkpointing
+(``remat``) is not ported yet: at olmo-paper's size the activations fit.
 
 MoE, MLA, recurrent, xLSTM, windowed, encoder-decoder and frontend configs
 raise ``NotImplementedError``: they come with a later slice of the port.
@@ -25,13 +27,15 @@ import torch
 
 from repro_torch.core import AttnSpec, QuantConfig
 from repro_torch.devices import resolve_device
-from .attention import attention_decode, attention_prefill, attn_init
+from .attention import (attention, attention_decode, attention_prefill,
+                        attn_init)
 from .layers import (apply_norm, dense_init, embed_init, embed_lookup,
                      norm_init, qdense)
 from .mlp import mlp_apply, mlp_init
 
-__all__ = ["LMConfig", "block_plan", "lm_init", "init_cache", "lm_prefill",
-           "lm_decode_step", "prefill_supported", "check_supported"]
+__all__ = ["LMConfig", "block_plan", "lm_init", "lm_apply", "lm_loss",
+           "init_cache", "lm_prefill", "lm_decode_step", "prefill_supported",
+           "check_supported"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,6 +175,55 @@ def _block_rest(h, lp, cfg: LMConfig, qcfg: QuantConfig, a):
     h = h + a
     hn2 = apply_norm(lp["ln2"], h, qcfg, cfg.norm)
     return h + mlp_apply(lp["mlp"], hn2, qcfg, cfg.act)
+
+
+def lm_apply(params, batch, cfg: LMConfig, qcfg: QuantConfig):
+    """Forward to the final hidden states (B, T, D) in bf16.  Returns
+    (hidden, aux_loss); dense blocks have no auxiliary loss (0)."""
+    check_supported(cfg)
+    tok = batch["tokens"]
+    B, T = tok.shape
+    h = embed_lookup(params["embed"], tok)
+    positions = torch.arange(T, device=tok.device)[None].expand(B, T)
+    spec = cfg.attn_spec()
+    for lp in params["layers"]:
+        hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
+        a = attention(lp["attn"], hn, qcfg=qcfg, n_heads=cfg.n_heads,
+                      n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
+                      positions=positions, spec=spec,
+                      rope_theta=cfg.rope_theta)
+        h = _block_rest(h, lp, cfg, qcfg, a)
+    h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
+    return h, torch.zeros((), dtype=torch.float32, device=tok.device)
+
+
+def lm_loss(params, batch, cfg: LMConfig, qcfg: QuantConfig):
+    """Mean next-token cross-entropy, streamed over sequence chunks of
+    ``cfg.loss_chunk`` (the LM-head GEMM inside the chunk loop, so fp32
+    logits peak at (B, loss_chunk, vocab)).  The last chunk is zero-padded
+    to full length as in the reference: wgrad blocks run along the chunk's
+    B * loss_chunk tokens, so the padding is part of the numbers.  Labels
+    < 0 are masked.  Returns (loss + 0.01 * aux, {"loss", "aux_loss"})."""
+    h, aux = lm_apply(params, batch, cfg, qcfg)
+    labels = batch["labels"]
+    B, T, D = h.shape
+    mask = (labels >= 0).to(torch.float32)
+    lc = min(cfg.loss_chunk, T)
+    pad = -T % lc
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, T + pad, lc):
+        logits = qdense(params["lm_head"], h[:, c0:c0 + lc],
+                        qcfg).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        lx = torch.clamp(labels[:, c0:c0 + lc], min=0)
+        ll = torch.gather(logits, -1, lx[..., None])[..., 0]
+        total = total + torch.sum((lse - ll) * mask[:, c0:c0 + lc])
+    loss = total / torch.clamp(torch.sum(mask), min=1.0)
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
 def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,

@@ -1,0 +1,106 @@
+"""Append-only event journal and the one checkpoint-meta serializer.
+
+Counterpart of ``repro.runtime.journal``: a :class:`Journal` is a ``list``
+of ``{"event": kind, ...}`` records, validated on append, with a JSONL
+round trip; :func:`checkpoint_meta` builds the meta the Trainer persists
+(qcfg, recoveries, segment index) and :func:`parse_checkpoint_meta`
+inverts it.  The meta is the reference's JSON, so a checkpoint's meta
+reads the same in either package (a reference meta's guard state is
+ignored: the autopilot is not ported).
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Iterable, Iterator, NamedTuple, Optional
+
+__all__ = ["Journal", "read_jsonl", "checkpoint_meta",
+           "parse_checkpoint_meta", "RestoredMeta"]
+
+def read_jsonl(path: str) -> Iterator[dict]:
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                yield json.loads(line)
+
+
+class Journal(list):
+    """Append-only event journal: a ``list`` of ``{"event": kind, ...}``
+    records, validated on append."""
+
+    def __init__(self, records: Iterable[dict] = ()):
+        super().__init__()
+        self.extend(records)
+
+    def append(self, rec: dict) -> None:
+        if not isinstance(rec, dict):
+            raise TypeError(
+                f"journal records are dicts, got {type(rec).__name__}")
+        kind = rec.get("event")
+        if not isinstance(kind, str) or not kind:
+            raise ValueError(
+                f"journal record needs a string 'event' kind: {rec!r}")
+        super().append(rec)
+
+    def extend(self, recs: Iterable[dict]) -> None:
+        for rec in recs:
+            self.append(rec)
+
+    def emit(self, kind: str, **fields) -> dict:
+        rec = {"event": kind, **fields}
+        self.append(rec)
+        return rec
+
+    def of_kind(self, *kinds: str) -> list:
+        return [r for r in self if r.get("event") in kinds]
+
+    def last(self, kind: str) -> Optional[dict]:
+        for r in reversed(self):
+            if r.get("event") == kind:
+                return r
+        return None
+
+    def to_jsonl(self, path: str) -> str:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            for rec in self:
+                f.write(json.dumps(rec) + "\n")
+        return path
+
+    @classmethod
+    def from_jsonl(cls, path: str) -> "Journal":
+        return cls(read_jsonl(path))
+
+
+class RestoredMeta(NamedTuple):
+    step: Optional[int]
+    qcfg: Optional[Any]
+    recoveries: Optional[int]
+    segment_index: int
+
+
+def checkpoint_meta(*, step: int, qcfg, recoveries: int = 0,
+                    segment_index: int = 0) -> dict:
+    """The Trainer's checkpoint meta: the active precision scheme (so a
+    resume cannot silently revert an intervention), the recovery count and
+    the segment index."""
+    return {"step": int(step), "qcfg": qcfg.describe(),
+            "qcfg_dict": qcfg.to_dict(), "recoveries": int(recoveries),
+            "segment_index": int(segment_index)}
+
+
+def parse_checkpoint_meta(meta: Optional[dict]) -> RestoredMeta:
+    """Invert :func:`checkpoint_meta`; absent fields come back None (or
+    segment 0), so older metas parse too."""
+    meta = meta or {}
+    qcfg = None
+    if meta.get("qcfg_dict") is not None:
+        from repro_torch.core import QuantConfig
+        qcfg = QuantConfig.from_dict(meta["qcfg_dict"])
+    return RestoredMeta(
+        step=None if meta.get("step") is None else int(meta["step"]),
+        qcfg=qcfg,
+        recoveries=(None if meta.get("recoveries") is None
+                    else int(meta["recoveries"])),
+        segment_index=int(meta.get("segment_index", 0)))

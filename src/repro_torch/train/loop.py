@@ -1,0 +1,356 @@
+"""Fault-tolerant training loop with the paper's in-situ interventions.
+
+Counterpart of ``repro.train.loop`` on a single device:
+
+  1. watchdog: :class:`SpikeDetector` on loss and gradient norm (App. B);
+  2. on a spike: roll back to the last clean checkpoint;
+  3. apply the configured intervention (default "bf16_activations", the
+     paper's strongest immediate stabilizer, Fig. 7) and resume from the
+     rollback step on the same step-indexed data; without a checkpointer
+     the intervention still applies (forward fix, no rollback);
+  4. after ``max_recoveries`` the run aborts with a terminal
+     ``recovery_exhausted`` event instead of replaying the same spike;
+  5. every decision is a record on ``Trainer.events`` (a Journal).
+
+``restore()`` adopts the checkpoint's recorded qcfg and recovery count,
+so a resume never silently reverts an intervention.  Step metrics stay on
+the device as 0-d tensors and are moved to the host once per
+``log_every`` / checkpoint window; checkpoints are written only after
+their window drained clean.  A step-time monitor flags stragglers.
+
+The step runs eagerly: the forward, ``torch.autograd.grad`` through the
+``mx_contract`` Functions (the MX GEMM, flash and quantize kernels on
+CUDA) and an in-place AdamW update.  With a ``ckpt_layout`` (see
+``repro_torch.convert.lm_checkpoint_layout``) checkpoints are the
+reference's files.  Meshes, the cross-pod gradient compression and the
+precision autopilot (``guard``) are ROADMAP Queue A item 5 and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch.core import QuantConfig, SpikeDetector, apply_intervention
+from repro_torch.core.diagnostics import tree_leaves_with_path
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               warmup_cosine)
+from repro_torch.runtime import (Journal, MemoryLedger, MetricsWindow,
+                                 SegmentTracker, checkpoint_meta,
+                                 parse_checkpoint_meta)
+
+__all__ = ["TrainerConfig", "Trainer", "make_train_step"]
+
+_LATER = ("is ROADMAP Queue A item 5 (guard, runtime, sweeps and "
+          "distribution), not ported yet")
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    total_steps: int = 1000
+    peak_lr: float = 2e-4
+    init_lr: float = 2e-5
+    end_lr: float = 2e-5
+    warmup_frac: float = 0.05
+    ckpt_every: int = 200
+    ckpt_dir: Optional[str] = None
+    keep_ckpts: int = 3
+    # instability watchdog / recovery
+    spike_factor: float = 100.0
+    grad_factor: float = 50.0
+    auto_intervention: Optional[str] = "bf16_activations"
+    max_recoveries: int = 3
+    # precision autopilot: not ported (raises when set)
+    guard: Optional[Any] = None
+    # straggler monitor
+    straggler_factor: float = 3.0
+    log_every: int = 50
+    grad_accum: int = 1                      # microbatches per step
+    pod_compression: Optional[str] = None    # not ported (raises when set)
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    return [t for _, t in tree_leaves_with_path(tree)]
+
+
+def _unflatten(tree, leaves):
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [build(v) for v in node]
+        return next(it)
+    return build(tree)
+
+
+def _microbatched(batch, n: int):
+    """(B, ...) tensor leaves -> n microbatches of B // n rows; 0-d leaves
+    are shared by every microbatch."""
+    def split(x, i):
+        if torch.as_tensor(x).ndim == 0:
+            return x
+        if x.shape[0] % n:
+            raise ValueError(f"grad_accum={n} does not divide batch dim "
+                             f"{x.shape[0]}")
+        m = x.shape[0] // n
+        return x[i * m:(i + 1) * m]
+
+    def part(node, i):
+        if isinstance(node, dict):
+            return {k: part(v, i) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(part(v, i) for v in node)
+        return split(node, i)
+    return [part(batch, i) for i in range(n)]
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
+                    tcfg: TrainerConfig, mesh=None):
+    """``loss_fn(params, batch, qcfg) -> (loss, metrics)``.  Returns
+    ``step_fn(params, opt_state, batch, step, qcfg) -> (params, opt_state,
+    metrics)``, which updates params and opt_state in place; metrics are
+    0-d tensors.  ``grad_accum > 1`` sums the microbatches' losses,
+    metrics and gradients in fp32, each divided by the count, in the
+    reference's order."""
+    if mesh is not None or tcfg.pod_compression:
+        raise NotImplementedError(f"sharded training (mesh, "
+                                  f"pod_compression) {_LATER}")
+    accum = max(1, tcfg.grad_accum)
+
+    def value_and_grad(params, batch, qcfg):
+        leaves = _leaves(params)
+        loss, metrics = loss_fn(params, batch, qcfg)
+        grads = torch.autograd.grad(loss, leaves)
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                list(grads))
+
+    def grads_of(params, batch, qcfg):
+        if accum == 1:
+            return value_and_grad(params, batch, qcfg)
+        total = None
+        for mb in _microbatched(batch, accum):
+            loss, metrics, grads = value_and_grad(params, mb, qcfg)
+            part = [loss.float() / accum,
+                    {k: v.float() / accum for k, v in metrics.items()},
+                    [g.float() / accum for g in grads]]
+            if total is None:
+                total = part
+            else:
+                total = [total[0] + part[0],
+                         {k: total[1][k] + part[1][k] for k in total[1]},
+                         [a + b for a, b in zip(total[2], part[2])]]
+        return total[0], total[1], total[2]
+
+    def step_fn(params, opt_state, batch, step: int, qcfg: QuantConfig):
+        loss, metrics, grads = grads_of(params, batch, qcfg)
+        lr = warmup_cosine(step, tcfg.total_steps, tcfg.peak_lr,
+                           tcfg.init_lr, tcfg.end_lr, tcfg.warmup_frac)
+        params, opt_state, om = adamw_update(_unflatten(params, grads),
+                                             opt_state, params, lr, opt_cfg)
+        metrics.update(om)
+        metrics["lr"] = lr
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+    return step_fn
+
+
+def _identity(tree):
+    return tree
+
+
+class Trainer:
+    """Single-device fault-tolerant trainer (see the module docstring).
+
+    ``params`` is a nested dict/list of tensors on the training device;
+    its leaves become autograd leaves and are updated in place.
+    ``ckpt_layout`` is a (to_ref, from_ref) pair mapping the
+    {"params", "opt"} tree to the checkpoint's layout and back (identity
+    by default)."""
+
+    def __init__(self, loss_fn, params, qcfg: QuantConfig,
+                 batch_fn: Callable[[int], Any],
+                 opt_cfg: Optional[AdamWConfig] = None,
+                 tcfg: Optional[TrainerConfig] = None, mesh=None,
+                 ckpt_layout=None):
+        self.tcfg = tcfg or TrainerConfig()
+        self.opt_cfg = opt_cfg or AdamWConfig()
+        if self.tcfg.guard is not None:
+            raise NotImplementedError(f"the precision autopilot (guard) "
+                                      f"{_LATER}")
+        self.loss_fn = loss_fn
+        self.batch_fn = batch_fn
+        self.qcfg = qcfg
+        self.mesh = mesh
+        for t in _leaves(params):
+            if not t.is_leaf:
+                raise ValueError("Trainer params must be leaf tensors")
+            t.requires_grad_(True)
+        self.params = params
+        self.opt_state = adamw_init(params, self.opt_cfg)
+        self.step = 0
+        self.detector = SpikeDetector(self.tcfg.spike_factor,
+                                      self.tcfg.grad_factor)
+        self._step_fn = make_train_step(loss_fn, self.opt_cfg, self.tcfg,
+                                        mesh)
+        self.history: List[Dict[str, float]] = []
+        self.events: Journal = Journal()
+        self._segments = SegmentTracker(qcfg, journal=self.events)
+        self.ledger = MemoryLedger(name="trainer")
+        self.ledger.account("params", self.params)
+        self.ledger.account("opt", self.opt_state)
+        self._to_ref, self._from_ref = ckpt_layout or (_identity, _identity)
+        self._ckptr = None
+        if self.tcfg.ckpt_dir:
+            from .checkpoint import Checkpointer
+            self._ckptr = Checkpointer(self.tcfg.ckpt_dir,
+                                       self.tcfg.keep_ckpts)
+        self._recoveries = 0
+        self._step_times: List[float] = []
+
+    # ---- checkpoint / restore --------------------------------------------
+    def _tree(self):
+        return {"params": self.params, "opt": self.opt_state}
+
+    def checkpoint(self):
+        if self._ckptr:
+            meta = checkpoint_meta(step=self.step, qcfg=self.qcfg,
+                                   recoveries=self._recoveries,
+                                   segment_index=self._segments.index)
+            self._ckptr.save(self.step, self._to_ref(self._tree()), meta)
+
+    def restore(self, step: Optional[int] = None,
+                adopt_meta: bool = True) -> bool:
+        """Load the newest (or given) checkpoint into the live tensors.
+
+        ``adopt_meta=True`` (resume) also adopts the recorded qcfg and
+        recovery count, warning when the qcfg differs; the in-run rollback
+        of ``_recover`` passes False, since there the in-memory qcfg is the
+        intervention."""
+        if not self._ckptr:
+            return False
+        from .checkpoint import latest_step, restore
+        self._ckptr.wait()
+        s = latest_step(self.tcfg.ckpt_dir) if step is None else step
+        if s is None:
+            return False
+        tree, meta, s = restore(self.tcfg.ckpt_dir,
+                                self._to_ref(self._tree()), s)
+        src = dict(tree_leaves_with_path(self._from_ref(tree)))
+        with torch.no_grad():
+            for path, dst in tree_leaves_with_path(self._tree()):
+                dst.copy_(src[path])
+        self.step = s
+        if adopt_meta and meta:
+            rm = parse_checkpoint_meta(meta)
+            if rm.recoveries is not None:
+                self._recoveries = rm.recoveries
+            if rm.qcfg is not None and rm.qcfg != self.qcfg:
+                warnings.warn(
+                    f"checkpoint step {s} was written with qcfg "
+                    f"[{rm.qcfg.describe()}] but the trainer was "
+                    f"constructed with [{self.qcfg.describe()}]; "
+                    "adopting the checkpoint's qcfg (mid-run "
+                    "intervention preserved)")
+                self.events.append({
+                    "step": s, "event": "qcfg_restored",
+                    "from_qcfg": self.qcfg.describe(),
+                    "to_qcfg": rm.qcfg.describe()})
+                self.qcfg = rm.qcfg
+            self._segments.restore(rm.segment_index, self.qcfg)
+        return True
+
+    # ---- recovery policy --------------------------------------------------
+    def _recover(self, reason: str) -> bool:
+        """Roll back (if possible) and intervene.  Returns whether a
+        rollback happened."""
+        rolled = self.restore(adopt_meta=False)
+        old = self.qcfg.describe()
+        if self.tcfg.auto_intervention:
+            self.qcfg = apply_intervention(self.qcfg,
+                                           self.tcfg.auto_intervention)
+        self._recoveries += 1
+        self.detector = SpikeDetector(self.tcfg.spike_factor,
+                                      self.tcfg.grad_factor)
+        self._segments.transition(self.step, self.qcfg, reason="recovery")
+        self.events.append({
+            "step": self.step, "event": "recovery", "reason": reason,
+            "rolled_back": rolled, "from_qcfg": old,
+            "to_qcfg": self.qcfg.describe()})
+        return rolled
+
+    # ---- metric window ----------------------------------------------------
+    def _drain(self, pending) -> tuple:
+        """Record a window of (step, metrics, time_s) entries and feed the
+        watchdog in order; stops at the first spike and returns (spike
+        reason or None, entries consumed)."""
+        for i, (s, metrics, dt) in enumerate(pending):
+            loss, gnorm = metrics["loss"], metrics["grad_norm"]
+            self._step_times.append(dt)
+            win = self._step_times[-64:]
+            med = sorted(win)[len(win) // 2]
+            rec = {"step": s, "loss": loss, "grad_norm": gnorm,
+                   "lr": metrics["lr"], "time_s": dt}
+            if dt > self.tcfg.straggler_factor * med and len(
+                    self._step_times) > 8:
+                self.events.append({"step": s, "event": "straggler",
+                                    "time_s": dt, "median_s": med})
+            self.history.append(rec)
+            if self.detector.update(loss, gnorm):
+                return f"spike@step{s}: loss={loss:.4g}", i + 1
+        return None, len(pending)
+
+    # ---- main loop ---------------------------------------------------------
+    def run(self, n_steps: Optional[int] = None):
+        first = _leaves(self.params)[0]
+        if not self.events or self.events[-1].get("event") != "run_start":
+            self.events.append({"step": self.step, "event": "run_start",
+                                "device": str(first.device),
+                                "qcfg": self.qcfg.describe()})
+        # n_steps=0 means nothing to do (a resume of a finished run)
+        end = self.step + (self.tcfg.total_steps if n_steps is None
+                           else n_steps)
+        log_every = max(self.tcfg.log_every, 1)
+        window = MetricsWindow()
+        aborted = False
+        window.reset_clock()
+        while self.step < end:
+            batch = self.batch_fn(self.step)
+            self.params, self.opt_state, metrics = self._step_fn(
+                self.params, self.opt_state, batch, self.step, self.qcfg)
+            window.push(self.step, metrics)
+            self.step += 1
+            at_ckpt = bool(self._ckptr) \
+                and self.step % self.tcfg.ckpt_every == 0
+            if not (at_ckpt or self.step >= end
+                    or self.step % log_every == 0):
+                continue
+            pending = window.drain()
+            recovered = False
+            while pending:
+                spike, consumed = self._drain(pending)
+                pending = pending[consumed:]
+                if spike is None:
+                    break
+                if self._recoveries >= self.tcfg.max_recoveries:
+                    self.events.append({
+                        "step": self.step, "event": "recovery_exhausted",
+                        "reason": spike, "recoveries": self._recoveries})
+                    aborted = True
+                    break
+                recovered = True
+                if self._recover(spike):
+                    pending = []   # the tail ran on a state now gone
+            window.reset_clock()
+            if aborted:
+                break
+            if at_ckpt and not recovered:
+                self.checkpoint()
+        if self._ckptr:
+            if not aborted:
+                self.checkpoint()
+            self._ckptr.wait()
+        return self.history

@@ -47,7 +47,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
 
 def test_port_imports_in_a_process_without_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.convert,"
-            " repro_torch.configs; "
+            " repro_torch.configs, repro_torch.train, repro_torch.optim, "
+            "repro_torch.launch.train; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
@@ -101,7 +102,9 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["mx_quant.cuh", "mx_quant.cu",
-                                  "mx_matmul.cu", "mx_attention.cu"])
+                                  "mx_matmul.cu", "mx_attention.cu",
+                                  "mx_gemm.cuh", "mx_matmul_bwd.cu",
+                                  "mx_attention_bwd.cu"])
 def test_cuda_sources_carry_their_note(name):
     text = (PORT / "kernels" / "csrc" / name).read_text()
     head = text[:text.index("#include")]

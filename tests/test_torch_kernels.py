@@ -221,10 +221,19 @@ def test_mx_contract_rejects_unknown_kind_and_backward_raises():
     with pytest.raises(ValueError, match="unknown mx_contract kind"):
         core.mx_contract(torch.zeros(2, 32), torch.zeros(32, 4), cfg,
                          kind="bmm")
-    x = torch.randn(2, 32, requires_grad=True)
-    y = core.mx_contract(x, torch.randn(32, 4), cfg, kind="dense")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        y.sum().backward()
+    # The backward runs on the CPU through the plain versions: dx and dW
+    # equal the quantize_mx-based products.
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 32, generator=g).bfloat16().requires_grad_(True)
+    w = torch.randn(32, 4, generator=g).bfloat16().requires_grad_(True)
+    dy = torch.randn(2, 4, generator=g).bfloat16()
+    core.mx_contract(x, w, cfg, kind="dense").backward(dy)
+    Q = core.quantize_mx
+    dx = (Q(dy, cfg.g_bwd, axis=-1).float()
+          @ Q(w.detach(), cfg.w_bwd, axis=1).float().T).bfloat16()
+    dw = (Q(x.detach(), cfg.a_bwd, axis=0).float().T
+          @ Q(dy, cfg.g_bwd, axis=0).float()).bfloat16()
+    assert torch.equal(x.grad, dx) and torch.equal(w.grad, dw)
 
 
 @pytest.mark.gpu
