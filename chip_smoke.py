@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch port serves and trains on an NVIDIA H100.
+"""Quickest proof that the PyTorch port serves (slab and paged KV caches)
+and trains on an NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -35,9 +36,23 @@ Phases, each of which raises on failure:
                 the quantize kernel must then launch no more.
   8. proxy    — the paper's student-teacher proxy at full width trains 20
                 steps under ``mxfp8_e4m3``.
+  9. paged-parity — page pools filled by chunked prefill for 4 prompts:
+                one decode step through the page table and one slab step
+                on the gathered cache give bitwise equal logits, and the
+                new K/V rows land in the mapped pages; chunked against
+                whole prefill logits within CHUNK_ATOL.
+ 10. paged    — the JAX package's bursty 32-request trace through the slab
+                engine (2 rows x 256) and the paged engine (6 rows, 16
+                pages of 32) under both presets: every request finishes,
+                the allocator ends empty, the prefix cache hits, the paged
+                decode kernel runs every paged decode step, and the token
+                streams agree under the margin rule.
 The kernel phase also holds the dgrad, wgrad and flash dgrad kernels at
 the training shapes (4096 tokens; BH 64, T 512) against their plain
-versions, with planted faults in the flash dgrad that its check rejects.
+versions, with planted faults in the flash dgrad that its check rejects,
+and the paged decode kernel at the paged engine's shapes (6 rows, views
+of 256 and 512) against the slab decode kernel on the gathered view and
+its plain version, with planted page-table faults.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
@@ -72,12 +87,14 @@ def ulp_bf16(x):
     return torch.exp2(e - 7)
 
 
-def _kernel_us(prof) -> float:
-    """Summed device time (µs) of the kernels a profiler window saw."""
+def _kernel_us(prof, skip=frozenset()) -> float:
+    """Summed device time (µs) of the kernels a profiler window saw, but
+    for those named in ``skip``."""
     import torch
     total = 0.0
     for row in prof.key_averages():
-        if row.device_type == torch.autograd.DeviceType.CUDA:
+        if (row.device_type == torch.autograd.DeviceType.CUDA
+                and row.key not in skip):
             total += getattr(row, "device_time_total",
                              getattr(row, "cuda_time_total", 0.0))
     return total
@@ -86,26 +103,34 @@ def _kernel_us(prof) -> float:
 def time_ms(fn, iters: int, flush) -> float:
     """Device time (ms) of one ``fn`` call, L2 flushed before each.
 
-    The profiler sums the device time of the kernels ``fn`` launches (the
-    flush kernel's time, measured alone, is taken off), so host launch
-    overhead is excluded.  Raises if the profiler sees no device time."""
+    The profiler sums the device time of the kernels ``fn`` launches in a
+    window of flush + ``fn`` pairs, leaving out the kernels a window of
+    the flush alone shows (the flush is a uint8 ``bitwise_not_`` over
+    64 MiB, which no timed function launches), so neither the flush nor
+    host launch overhead is counted.  The flush is taken out by name, not
+    by subtracting a second window's time: the flush's time varies by
+    more than a call of a few µs takes.  Raises if the profiler sees no
+    device time for ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(), fn()
     torch.cuda.synchronize()
-    spans = []
-    for with_fn in (True, False):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                flush()
-                if with_fn:
-                    fn()
-            torch.cuda.synchronize()
-        spans.append(_kernel_us(prof))
-    if spans[0] - spans[1] <= 0:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flush()
+        torch.cuda.synchronize()
+    flush_keys = frozenset(
+        row.key for row in prof.key_averages()
+        if row.device_type == torch.autograd.DeviceType.CUDA)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    us = _kernel_us(prof, flush_keys)
+    if us <= 0:
         raise RuntimeError(f"the profiler saw no device time for the call "
-                           f"(with {spans[0]} us, flush alone {spans[1]} us)")
-    return (spans[0] - spans[1]) / iters / 1e3
+                           f"(flush kernels {sorted(flush_keys)})")
+    return us / iters / 1e3
 
 
 def bound(bytes_moved: float, flops: float):
@@ -229,8 +254,8 @@ def phase_kernels():
 
     dev = "cuda"
     g = torch.Generator().manual_seed(SEED)
-    flush_buf = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device=dev)
-    flush = flush_buf.zero_
+    flush_buf = torch.zeros(64 * 2 ** 20, dtype=torch.uint8, device=dev)
+    flush = flush_buf.bitwise_not_
 
     def rnd(*shape, dtype=torch.bfloat16, std=1.0):
         return (torch.randn(*shape, generator=g) * std).to(dtype).to(dev)
@@ -350,8 +375,129 @@ def phase_kernels():
                time_ms(lambda: ref.mx_attention_decode_ref(q, kc, vc, valid, fmt), 10, flush),
                lib, bound(2 * (2 * B * S * H * 64 + 2 * B * H * 64) + B * S,
                           4 * B * H * S * 64))
+    paged_kernels(record, flush)
     training_kernels(rnd, record, flush)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The paged-serving slice: decode through a page table.
+# ---------------------------------------------------------------------------
+# Faults a paged decode kernel could plant in its page-table lookup.  Each
+# is run through the kernel itself, with the faulty table standing for the
+# faulty lookup, and must fail the checks below.
+PAGED_FAULTS = ("two logical pages swapped", "table read one page off")
+
+
+def paged_case(P: int, device, ps: int = 32, n_pages: int = 64, H: int = 8,
+               d: int = 64, seed: int = SEED):
+    """Inputs of the paged decode kernel at the paged engine's row count
+    (6 rows x 8 kv heads, d 64, pages of 32): rows at several positions
+    map ceil((pos+1)/ps) pages drawn from a permutation of the pool, the
+    rest of each row is unmapped (-1), rows 0 and 1 share their first page
+    and row 5 is dead (all -1).  Returns (q, k_pool, v_pool, page_table,
+    valid, pos)."""
+    import numpy as np
+    import torch
+    B, S = 6, P * ps
+    rng = np.random.default_rng(seed + P)
+    pos = np.array([40, 130, S - 12, S // 2 + 3, 75, 0])
+    perm = iter(rng.permutation(n_pages).tolist())
+    pt = np.full((B, P), -1, np.int32)
+    for b in range(B - 1):
+        for j in range(pos[b] // ps + 1):
+            pt[b, j] = next(perm)
+    pt[1, 0] = pt[0, 0]
+    g = torch.Generator().manual_seed(seed + P)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(torch.bfloat16).to(device)
+    q = rnd(B * H, 1, d)
+    kp, vp = rnd(n_pages, ps, H, d), rnd(n_pages, ps, H, d)
+    ptt = torch.as_tensor(pt, device=device)
+    posd = torch.as_tensor(pos, device=device)
+    valid = (torch.arange(S, device=device)[None] <= posd[:, None]) & (
+        torch.repeat_interleave(ptt >= 0, ps, dim=1))
+    return q, kp, vp, ptt, valid, posd
+
+
+def planted_table(pt, fault):
+    """The page table as a kernel with ``fault`` in its lookup would read
+    it: the first logical page swapped with each live row's tail page
+    (which holds pos, partly written), or every entry read one place
+    later along the flattened table."""
+    import torch
+    if fault == "two logical pages swapped":
+        out = pt.clone()
+        for b in range(pt.shape[0]):
+            tail = int((pt[b] >= 0).sum()) - 1
+            if tail > 0:
+                out[b, 0], out[b, tail] = pt[b, tail], pt[b, 0]
+        return out
+    flat = pt.flatten()
+    return torch.cat([flat[1:], flat.new_full((1,), -1)]).reshape(pt.shape)
+
+
+def paged_kernels(record, flush, dev: str = "cuda"):
+    """The paged decode kernel at P 16 (view 512) and P 8 (view 256), in
+    E4M3 and bf16 modes: bitwise equal to the slab decode kernel on the
+    gathered view and to its plain version, and each planted table fault
+    both unequal to the slab kernel and outside the decode tolerance
+    (attn_check) of the plain version."""
+    import torch
+    from repro_torch.core import E4M3
+    from repro_torch.kernels import ops, ref
+
+    for P, fmt, primary in ((16, E4M3, True), (8, E4M3, False),
+                            (16, None, False), (8, None, False)):
+        q, kp, vp, pt, valid, _ = paged_case(P, dev)
+        ps, H = kp.shape[1], kp.shape[2]
+        S = P * ps
+        validr = torch.repeat_interleave(valid, H, dim=0)
+
+        def slab(table):
+            return ops.mx_attention_decode(q, ref.gather_pages(kp, table),
+                                           ref.gather_pages(vp, table),
+                                           validr, fmt)
+        o = ops.mx_attention_decode_paged(q, kp, vp, pt, valid, fmt)
+        o7 = slab(pt)
+        orf = ref.mx_attention_decode_paged_ref(q, kp, vp, pt, valid, fmt)
+        floor = attn_floor(vp, S)
+        _, worst = attn_check(o, orf, floor)
+        same7 = torch.equal(o, o7)
+        n_off_plain = int((o != orf).sum())
+        for fault in PAGED_FAULTS:
+            of = ops.mx_attention_decode_paged(q, kp, vp,
+                                               planted_table(pt, fault),
+                                               valid, fmt)
+            accepted, w_ = attn_check(of, orf, floor)
+            accepted = accepted or torch.equal(of, o7)
+            print(f"[controls] paged decode P{P}: {fault!r} worst err/tol "
+                  f"{w_:.2f} ({'ACCEPTED' if accepted else 'rejected'})",
+                  flush=True)
+            if accepted:
+                raise AssertionError(f"paged decode: the checks accept the "
+                                     f"planted fault {fault!r}")
+        # Bytes the function must move: the K/V rows of the distinct mapped
+        # pages, q, out, the table and the mask; operations: the QK and PV
+        # products over the valid positions.
+        mapped = torch.unique(pt[pt >= 0]).numel()
+        n_valid = int(valid.sum())
+        d = q.shape[-1]
+        record("mx_attention_decode_paged",
+               f"paged decode B6 H8 P{P} ps{ps} (view {S}) d64 "
+               f"{'e4m3' if fmt else 'bf16'} (worst err/tol {worst:.3f}, "
+               f"bitwise to the slab kernel {same7}, {n_off_plain} of "
+               f"{o.numel()} elements off the plain version)", primary,
+               (o.float() - orf.float()).abs().max().item(),
+               same7 and n_off_plain == 0,
+               time_ms(lambda: ops.mx_attention_decode_paged(
+                   q, kp, vp, pt, valid, fmt), 50, flush),
+               time_ms(lambda: ref.mx_attention_decode_paged_ref(
+                   q, kp, vp, pt, valid, fmt), 10, flush),
+               None, bound(2 * 2 * mapped * ps * H * d + 2 * 2 * q.numel()
+                           + 4 * pt.numel() + valid.numel(),
+                           4 * n_valid * H * d))
 
 
 # ---------------------------------------------------------------------------
@@ -921,20 +1067,22 @@ def phase_serve(params, cfg):
     return counts
 
 
-def profile_decode_step(sp, cfg, qcfg, cache, steps: int = 10):
-    """Wall time of one batched decode step (max_batch 4) against the
-    kernel time the profiler sees in it: the device's busy and idle share,
-    and the kernels that take the most time."""
+def profile_decode_step(sp, cfg, qcfg, cache, steps: int = 10,
+                        pos=(100, 200, 300, 400), **paged):
+    """Wall time of one batched decode step (4 rows) against the kernel
+    time the profiler sees in it: the device's busy and idle share, and
+    the kernels that take the most time.  ``paged`` (page_table, live)
+    decodes through a page table, as the paged engine calls it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import lm_decode_step
 
     tok = torch.ones((4, 1), dtype=torch.long, device="cuda")
-    pos = torch.tensor([100, 200, 300, 400], device="cuda")
+    pos = torch.tensor(pos, device="cuda")
 
     def run():
         for _ in range(steps):
-            lm_decode_step(sp, cache, tok, pos, cfg, qcfg)
+            lm_decode_step(sp, cache, tok, pos, cfg, qcfg, **paged)
         torch.cuda.synchronize()
 
     run()
@@ -962,7 +1110,8 @@ def profile_decode_step(sp, cfg, qcfg, cache, steps: int = 10):
     out = {"wall_ms": wall_ms, "kernel_ms": busy_ms,
            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
            "top_kernels_ms_per_step": top}
-    print(f"[decode-step] {qcfg.describe()}: {json.dumps(out)}", flush=True)
+    print(f"[decode-step] {'paged ' if paged else ''}{qcfg.describe()}: "
+          f"{json.dumps(out)}", flush=True)
     return out
 
 
@@ -1063,6 +1212,363 @@ LOGIT_REL = {"mxfp8_e4m3": 0.08, "e4m3_bf16act": 0.012}
 LOGIT_ATOL = {"mxfp8_e4m3": 0.375, "e4m3_bf16act": 0.0625}
 
 
+# The paged engine's geometry on the bursty trace (the JAX package's
+# benchmarks/serve_throughput.py): pages of 32, rows of 256 positions.
+PAGE_SIZE = 32
+PAGED_MAX_LEN = 256
+# Chunked against whole lm_prefill logits, largest absolute difference over
+# the 4 parity prompts, per preset.  The GEMM kernels split K by a count
+# that depends on M, and a 64-row chunk is another M than a whole prompt,
+# so the two sum in another order; under mxfp8_e4m3 a rounding flip of an
+# MX value then moves a logit by a quantum.  Both are deterministic.  The
+# limits are 2x the first reading on an H100 80GB HBM3 at 700 W (0.171875
+# and 0.03515625).
+CHUNK_ATOL = {"mxfp8_e4m3": 0.34375, "e4m3_bf16act": 0.0703125}
+
+
+def fill_pages(sp, cfg, qcfg, prompts, n_pages: int, dev):
+    """Chunked prefill of ``prompts`` into fresh page pools, as the paged
+    engine runs it (chunks of 2 pages, ``lm_prefill_chunk`` then
+    ``write_chunk_pages`` with at-rest quantization), each row on pages
+    drawn from a permutation of the pool.  Returns (pools, page table
+    (B, P) int32, the last chunk's logits (B, vocab))."""
+    import numpy as np
+    import torch
+    from repro_torch.models import init_cache_paged, lm_prefill_chunk
+    from repro_torch.serve.pages import gather_prior, write_chunk_pages
+
+    ps, C = PAGE_SIZE, 2 * PAGE_SIZE
+    P = PAGED_MAX_LEN // ps
+    cache = init_cache_paged(cfg, n_pages, ps, dev)
+    pools = [lc[n] for lc in cache for n in ("k", "v")]
+    fmt = qcfg.a_fwd if qcfg.attn else None
+    perm = iter(np.random.default_rng(SEED).permutation(n_pages).tolist())
+    pt = np.full((len(prompts), P), -1, np.int32)
+    logits = []
+    for b, prompt in enumerate(prompts):
+        T = prompt.size
+        pages = [next(perm) for _ in range(T // ps + 1)]
+        pt[b, :len(pages)] = pages
+        row = np.full(P + C // ps, n_pages, np.int32)
+        row[:len(pages)] = pages
+        for start in range(0, T, C):
+            real = min(T - start, C)
+            toks = np.zeros(C, np.int64)
+            toks[:real] = prompt[start:start + real]
+            prior = gather_prior(pools, row[:start // ps])
+            lg, chunk = lm_prefill_chunk(
+                sp, torch.as_tensor(toks, device=dev)[None],
+                [{"k": k, "v": v} for k, v in zip(prior[::2], prior[1::2])],
+                start, cfg, qcfg, torch.tensor([real - 1], device=dev),
+                torch.as_tensor(np.arange(C) < real, device=dev)[None])
+            write_chunk_pages(pools, [c[n] for c in chunk
+                                      for n in ("k", "v")],
+                              row[start // ps:(start + C) // ps],
+                              max(0, min(T // ps - start // ps, C // ps)),
+                              ("k", "v") * len(cache), fmt, qcfg.block,
+                              qcfg.scale_mode)
+        logits.append(lg)
+    return cache, torch.as_tensor(pt, device=dev), torch.cat(logits)
+
+
+def slab_view(cache, pt):
+    """The slab cache (B, P*ps, H, d) per layer that the page table maps
+    (unmapped entries read page 0, as the gather does)."""
+    out = []
+    for lc in cache:
+        view = {}
+        for n in ("k", "v"):
+            pool = lc[n]
+            g = pool[pt.long().clamp(0, pool.shape[0] - 1)]
+            view[n] = g.reshape((pt.shape[0], -1) + pool.shape[2:]).clone()
+        out.append(view)
+    return out
+
+
+def phase_paged_parity(params, cfg, dev: str = "cuda",
+                       presets=("mxfp8_e4m3", "e4m3_bf16act")):
+    """At full width: fill page pools for 4 prompts by chunked prefill, run
+    one paged lm_decode_step through the page table and one slab step on
+    the gathered cache (same tokens, positions and M): the logits must be
+    bitwise equal and the new K/V rows must land in the mapped pages.  Also
+    reads chunked against whole lm_prefill logits (CHUNK_ATOL).  Returns
+    the readings per preset and the launches of one paged decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_decode_step, lm_prefill
+    from repro_torch.serve import serving_params
+
+    sp = serving_params(params, dev)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in (40, 100, 150, 230)]
+    out = {}
+    with torch.inference_mode():
+        for name in presets:
+            qcfg = preset(name)
+            cache, pt, chunked = fill_pages(sp, cfg, qcfg, prompts, 48, dev)
+            whole = torch.cat([lm_prefill(
+                sp, torch.as_tensor(p, dtype=torch.long, device=dev)[None],
+                cfg, qcfg, PAGED_MAX_LEN)[0] for p in prompts])
+            chunk_err = (chunked.float() - whole.float()).abs().max().item()
+            tok = torch.argmax(chunked.float(), -1)[:, None]
+            pos = torch.as_tensor([p.size for p in prompts], device=dev)
+            slab = slab_view(cache, pt)
+            ops.reset_launches()
+            # Without ``live`` the step finds the live rows from the table.
+            lp, _ = lm_decode_step(sp, cache, tok, pos, cfg, qcfg,
+                                   page_table=pt)
+            per_step = dict(ops.LAUNCHES)
+            ls, _ = lm_decode_step(sp, slab, tok, pos, cfg, qcfg)
+            same = torch.equal(lp, ls)
+            landed = all(torch.equal(a[n], b[n]) for a, b in
+                         zip(slab_view(cache, pt), slab) for n in ("k", "v"))
+            limit = CHUNK_ATOL[name]
+            ok = same and landed and chunk_err <= limit
+            step = None
+            if dev == "cuda":
+                step = profile_decode_step(
+                    sp, cfg, qcfg, cache, pos=[p.size for p in prompts],
+                    page_table=pt,
+                    live=torch.arange(len(prompts), device=dev))
+            out[name] = {"logits_bitwise": same, "rows_landed": landed,
+                         "chunked_vs_whole_max_abs": chunk_err,
+                         "limit": limit,
+                         "argmax_agree": int((torch.argmax(chunked, -1)
+                                              == torch.argmax(whole, -1))
+                                             .sum()),
+                         "launches_per_paged_decode_step": per_step,
+                         "decode_step": step}
+            print(f"[paged-parity] {'ok  ' if ok else 'FAIL'} {name} "
+                  + json.dumps(out[name]), flush=True)
+            if not ok:
+                raise AssertionError(f"{name}: paged and slab decode "
+                                     f"disagree: {out[name]}")
+    return out
+
+
+def bursty_trace(vocab: int, n_req: int = 32):
+    """The JAX package's bursty trace (benchmarks/serve_throughput.py):
+    bimodal prompt lengths (6-16 and 120-200 tokens) submitted in one
+    burst, every third opening with one shared 32-token page; 24 or 8 new
+    tokens, greedy, seeds by index."""
+    import numpy as np
+    from repro_torch.serve import SamplingParams
+    rng = np.random.RandomState(17)
+    prefix = rng.randint(1, vocab, size=PAGE_SIZE)
+    trace = []
+    for i in range(n_req):
+        if i % 3 == 0:
+            body = rng.randint(1, vocab, size=int(rng.randint(8, 24)))
+            prompt = np.concatenate([prefix, body])
+        elif i % 3 == 1:
+            prompt = rng.randint(1, vocab, size=int(rng.randint(6, 16)))
+        else:
+            prompt = rng.randint(1, vocab, size=int(rng.randint(120, 200)))
+        trace.append((prompt, SamplingParams(
+            max_new_tokens=24 if i % 2 == 0 else 8, seed=i)))
+    return trace
+
+
+def teacher_forced(sp, cfg, qcfg, trace, results, dev: str):
+    """One whole forward per request over its prompt and emitted tokens
+    (teacher forced).  Returns per request (margins, gaps): at token i, the
+    top-1/top-2 logit margin and how far the emitted token's logit lies
+    below the maximum, both of the logits that chose token i."""
+    import numpy as np
+    import torch
+    from repro_torch.models import lm_apply
+    from repro_torch.models.layers import qdense
+
+    out = []
+    with torch.inference_mode():
+        for (prompt, _), r in zip(trace, results):
+            ctx = np.concatenate([prompt, np.asarray(r.tokens[:-1])])
+            h, _ = lm_apply(sp, {"tokens": torch.as_tensor(
+                ctx, dtype=torch.long, device=dev)[None]}, cfg, qcfg)
+            lg = qdense(sp["lm_head"], h[0, prompt.size - 1:], qcfg).float()
+            top2 = torch.topk(lg, 2, dim=-1).values
+            tok = torch.as_tensor(r.tokens, device=dev)
+            gap = top2[:, 0] - lg[torch.arange(tok.numel(), device=dev), tok]
+            out.append(((top2[:, 0] - top2[:, 1]).cpu().numpy(),
+                        gap.cpu().numpy()))
+    return out
+
+
+def stream_rule(slab, paged, margins, limit: float):
+    """The margin rule of tests/test_torch_serve.py: each paged stream
+    equals the slab stream up to its first differing token, and there the
+    slab engine's own top-1/top-2 margin is within ``limit``.  Returns
+    (tokens held before the first difference, the first differences, the
+    ones the rule rejects)."""
+    held, diverged, bad = 0, [], []
+    for rs, rp, m in zip(slab, paged, margins):
+        diff = [i for i, (a, b) in enumerate(zip(rs.tokens, rp.tokens))
+                if a != b]
+        if len(rs.tokens) != len(rp.tokens):
+            diff.append(min(len(rs.tokens), len(rp.tokens)))
+        if not diff:
+            held += len(rs.tokens)
+            continue
+        i = diff[0]
+        held += i
+        rec = {"rid": rs.rid, "step": i,
+               "margin": float(m[i]) if i < len(m) else float("inf")}
+        diverged.append(rec)
+        if rec["margin"] > limit:
+            bad.append(rec)
+    return held, diverged, bad
+
+
+def tail_write_off_by_one():
+    """Planted engine fault: every paged decode step writes the new K/V
+    one position past its slot in the tail page."""
+    from unittest import mock
+    from repro_torch.models import transformer
+
+    real = transformer.paged_write_slots
+
+    def faulty(page_table, pos, page_size, live=None):
+        rows, page, off = real(page_table, pos, page_size, live)
+        return rows, page, (off + 1) % page_size
+
+    return mock.patch.object(transformer, "paged_write_slots", faulty)
+
+
+def phase_paged(params, cfg, dev: str = "cuda",
+                presets=("mxfp8_e4m3", "e4m3_bf16act"), n_req: int = 32):
+    """The bursty trace through the slab engine (max_batch 2, max_len 256,
+    no bucketing) and the paged engine (max_batch 6, 16 pages of 32): the
+    same token budget.  Every request finishes by length, the allocator is
+    consistent and empty at the end, the prefix cache hits, the paged
+    decode kernel launches once per layer per paged decode step and the
+    slab decode kernel never in the paged engine, and the token streams
+    agree until the slab engine's own top-1/top-2 margin is within
+    2 x CHUNK_ATOL.  Every paged token also lies within CHUNK_ATOL of the
+    maximum of a teacher-forced whole forward over its own stream, and a
+    paged engine with a planted fault (the tail page written one position
+    off) must fail that check.  Returns each preset's launch counts and
+    numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (PagedServeEngine, ServeEngine,
+                                   serving_params)
+
+    trace = bursty_trace(cfg.vocab, n_req)
+    out = {}
+    for name in presets:
+        qcfg = preset(name)
+        engines = {
+            "slab": ServeEngine(params, cfg, qcfg, max_batch=2,
+                                max_len=PAGED_MAX_LEN, bucket_prompts=False,
+                                device=dev),
+            "paged": PagedServeEngine(params, cfg, qcfg, max_batch=6,
+                                      max_len=PAGED_MAX_LEN, n_pages=16,
+                                      page_size=PAGE_SIZE, device=dev)}
+        res, counts = {}, {}
+        for kind, eng in engines.items():
+            for prompt, spr in trace:
+                eng.submit(prompt, spr)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res[kind] = eng.drain()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            counts[kind] = dict(ops.LAUNCHES)
+            counts[kind]["wall_s"] = time.perf_counter() - t0
+        slab, paged = engines["slab"], engines["paged"]
+        st = {k: e.stats() for k, e in engines.items()}
+        bad = [(r.rid, r.finish_reason, len(r.tokens)) for k in res
+               for r in res[k] if r.finish_reason != "length"
+               or len(r.tokens) != r.sampling.max_new_tokens]
+        if len(res["paged"]) != n_req or len(res["slab"]) != n_req or bad:
+            raise AssertionError(f"{name}: requests did not all finish by "
+                                 f"length: {bad}")
+        paged.alloc.check()
+        if paged.alloc.pages_in_use or not paged.alloc.prefix_hits:
+            raise AssertionError(f"{name}: {paged.alloc.pages_in_use} pages "
+                                 f"in use at the end, "
+                                 f"{paged.alloc.prefix_hits} prefix hits")
+        n8 = counts["paged"]["mx_attention_decode_paged"]
+        steps = int(st["paged"]["decode_steps"])
+        if n8 != cfg.n_layers * steps or counts["paged"][
+                "mx_attention_decode"] or counts["slab"][
+                "mx_attention_decode_paged"]:
+            raise AssertionError(
+                f"{name}: paged decode launched {n8} times over {steps} "
+                f"paged decode steps; slab decode launched "
+                f"{counts['paged']['mx_attention_decode']} times in the "
+                f"paged engine")
+        # Token streams under the margin rule, and every paged token held
+        # to a teacher-forced whole forward of its own stream.
+        limit = 2 * CHUNK_ATOL[name]
+        sp = serving_params(params, dev)
+        slab_tf = teacher_forced(sp, cfg, qcfg, trace, res["slab"], dev)
+        margins = [m for m, _ in slab_tf]
+        held, diverged, bad = stream_rule(res["slab"], res["paged"],
+                                          margins, limit)
+        if bad:
+            raise AssertionError(
+                f"{name}: streams diverge where the slab margin exceeds "
+                f"{limit}: {bad}")
+        every = np.concatenate(margins)
+        paged_gap = max(float(g.max()) for _, g in teacher_forced(
+            sp, cfg, qcfg, trace, res["paged"], dev))
+        rule = {"limit": limit, "tokens": int(every.size),
+                "tokens_held": held,
+                "margin_median": float(np.median(every)),
+                "margin_p5": float(np.percentile(every, 5)),
+                "share_within_limit": float((every <= limit).mean()),
+                "forced_gap_limit": CHUNK_ATOL[name],
+                "forced_gap_max": {
+                    "slab": max(float(g.max()) for _, g in slab_tf),
+                    "paged": paged_gap}}
+        if paged_gap > CHUNK_ATOL[name]:
+            raise AssertionError(
+                f"{name}: a paged token lies {paged_gap} below the maximum "
+                f"of the teacher-forced logits (limit {CHUNK_ATOL[name]})")
+        planted = PagedServeEngine(params, cfg, qcfg, max_batch=6,
+                                   max_len=PAGED_MAX_LEN, n_pages=16,
+                                   page_size=PAGE_SIZE, device=dev)
+        for prompt, spr in trace:
+            planted.submit(prompt, spr)
+        with tail_write_off_by_one():
+            wrong = planted.drain()
+        p_held, _, p_bad = stream_rule(res["slab"], wrong, margins, limit)
+        p_gap = max(float(g.max()) for _, g in teacher_forced(
+            sp, cfg, qcfg, trace, wrong, dev))
+        rule["planted_tail_off_by_one"] = {
+            "tokens_held": p_held, "margin_rule_rejects": len(p_bad),
+            "forced_gap_max": p_gap}
+        if p_gap <= CHUNK_ATOL[name]:
+            raise AssertionError(
+                f"{name}: the teacher-forced check accepts a paged engine "
+                f"that writes the tail page one position off: {rule}")
+        rec = {
+            "slab": {k: st["slab"][k] for k in (
+                "decode_tok_s", "prefill_tok_s", "decode_steps")},
+            "paged": {k: st["paged"][k] for k in (
+                "decode_tok_s", "prefill_tok_s", "decode_steps",
+                "preemptions", "prefix_hits", "evictions")},
+            "paged_over_slab_decode_tok_s": st["paged"]["decode_tok_s"]
+            / max(st["slab"]["decode_tok_s"], 1e-9),
+            "wall_s": {k: counts[k]["wall_s"] for k in counts},
+            "streams_diverged": diverged,
+            "margin_rule": rule,
+            "ledger": paged.ledger.report(),
+            "launches": {k: {n: v for n, v in counts[k].items()
+                             if n != "wall_s"} for k in counts}}
+        print(f"[paged] {name}: " + json.dumps(rec), flush=True)
+        out[name] = rec
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("run from a checkout: src/repro_torch is missing beside this "
@@ -1088,13 +1594,18 @@ def main() -> int:
     phase_grad_parity(params, cfg)
     phase_recovery(params, cfg)
     phase_proxy()
+    paged_parity = phase_paged_parity(params, cfg)
+    paged = phase_paged(params, cfg)
 
     # "launches": each kernel's count over the run of its own path under
     # mxfp8_e4m3, counts set to 0 just before it (serving for the slice-1
-    # kernels, 20 training steps for the backward kernels).
+    # kernels, 20 training steps for the backward kernels, the paged
+    # engine's bursty trace for the paged decode kernel).
     serve_path = ("mx_quantize", "mx_matmul", "mx_flash_attention",
                   "mx_attention_decode")
     train_counts = train["mxfp8_e4m3"]["counts"]
+    paged_counts = paged["mxfp8_e4m3"]["launches"]["paged"]
+    per_paged = paged_parity["mxfp8_e4m3"]["launches_per_paged_decode_step"]
     kernels = []
     for name, (source, replaces) in ops.KERNELS.items():
         row = rows[name]
@@ -1102,11 +1613,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": (counts["mxfp8_e4m3"][name] if name in serve_path
+                         else paged_counts[name]
+                         if name == "mx_attention_decode_paged"
                          else train_counts[name]),
             "launches_serve": counts["mxfp8_e4m3"][name],
             "launches_train": train_counts[name],
+            "launches_paged": paged_counts[name],
             "launches_per_prefill": per_prefill[name],
             "launches_per_decode_step": per_decode[name],
+            "launches_per_paged_decode_step": per_paged[name],
             "launches_per_train_step": {
                 k: v["launches_per_step"][name] for k, v in train.items()},
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],

@@ -14,6 +14,9 @@ Counterpart of ``repro.core.qlinear``, with the kinds
                  (forward and dgrad) in bf16 mode too.
   "attn_decode"  the Tq = 1 shape q (BH,G,d) against a cache with a
                  validity mask (see ``kernels.ops.mx_attention_decode``).
+  "attn_decode_paged"  the same against (N,ps,Hkv,d) page pools through a
+                 (B,P) page table ``pages`` with a (B,P*ps) validity mask
+                 (see ``kernels.ops.mx_attention_decode_paged``).
 
 Dispatch follows the tensor's device: the kernel wrappers launch the CUDA
 kernels for CUDA tensors and run the plain versions for CPU tensors.  The
@@ -131,9 +134,11 @@ class _Flash(torch.autograd.Function):
 
 def mx_contract(lhs, rhs, cfg: QuantConfig, *, kind: str = "dense",
                 spec: Optional[AttnSpec] = None,
-                valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                valid: Optional[torch.Tensor] = None,
+                pages: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Quantized contraction dispatched on ``kind`` (see module docstring).
-    ``rhs`` is a tensor for "dense" and a ``(k, v)`` pair for attention."""
+    ``rhs`` is a tensor for "dense" and a ``(k, v)`` pair for attention;
+    ``pages`` is the page table of "attn_decode_paged"."""
     if kind == "dense":
         return _Dense.apply(lhs, rhs, cfg)
     if kind == "flash_attn":
@@ -148,6 +153,16 @@ def mx_contract(lhs, rhs, cfg: QuantConfig, *, kind: str = "dense",
         return ops.mx_attention_decode(lhs, k, v, valid, _attn_fmt(cfg),
                                        block=cfg.block,
                                        scale_mode=cfg.scale_mode)
+    if kind == "attn_decode_paged":
+        if valid is None or pages is None:
+            raise ValueError("kind='attn_decode_paged' requires valid=(B, "
+                             "P*ps) mask and pages=(B, P) page table")
+        k_pool, v_pool = rhs
+        return ops.mx_attention_decode_paged(lhs, k_pool, v_pool, pages,
+                                             valid, _attn_fmt(cfg),
+                                             block=cfg.block,
+                                             scale_mode=cfg.scale_mode)
     raise ValueError(f"unknown mx_contract kind {kind!r}; expected one of "
-                     "['attn_decode', 'dense', 'flash_attn'] (the other "
-                     "reference kinds come with later slices of the port)")
+                     "['attn_decode', 'attn_decode_paged', 'dense', "
+                     "'flash_attn'] (the other reference kinds come with "
+                     "later slices of the port)")

@@ -1,12 +1,17 @@
-// MX flash attention forward (prefill) and MX decode attention.
+// MX flash attention forward (prefill), MX decode attention, and MX decode
+// through a page table.
 //
 // Replaces: `mx_attn_fwd_pallas` (src/repro/kernels/mx_attention.py:156,
-//   pallas_call at :172; body `_mx_attn_fwd_kernel` :110-151) and
+//   pallas_call at :172; body `_mx_attn_fwd_kernel` :110-151),
 //   `mx_attn_decode_pallas` (:455, pallas_call at :468; body
-//   `_mx_attn_decode_body` :364-381).
-// Bound: both are memory- and latency-bound at the serve path's shapes.
-//   Prefill attention at d = 64 does ~4 d operations per score, far below
-//   the H100's ~295 operations per byte; decode reads the KV cache once.
+//   `_mx_attn_decode_body` :364-381) and `mx_attn_decode_paged_pallas`
+//   (:407, pallas_call at :445; body `_mx_attn_decode_paged_kernel`
+//   :384-404).
+// Bound: all three are memory- and latency-bound at the serve path's
+//   shapes.  Prefill attention at d = 64 does ~4 d operations per score,
+//   far below the H100's ~295 operations per byte; decode reads the KV
+//   cache once.  Paged decode must move the K/V rows of the mapped pages,
+//   q, out, the page table and the validity mask once, over 3.35 TB/s.
 // Design:
 //   * Flash forward.  In MX mode the unnormalized p is quantized after the
 //     rescale by the running max over the whole JAX kv tile
@@ -32,6 +37,17 @@
 //     therefore matter, as in the reference).  For the PV product a lane
 //     owns a value column and walks the 32 rows of a block, so the block
 //     max of v needs no shuffle.
+//   * Paged decode is the same kernel (template flag PAGED) with another
+//     row address: view position s of row b lives at offset s % ps of
+//     physical page pt[b * P + s / ps] of the (N, ps, Hkv, d) pool, read
+//     through strides; an entry outside [0, N) is clamped, so an unmapped
+//     -1 reads page 0 exactly as the gather of the plain version does (the
+//     mask hides it, and v's 32-blocks never straddle a page because ps is
+//     a multiple of 32).  Every multiply, add and reduction is the slab
+//     kernel's, in its order, so the result is bitwise that of the slab
+//     kernel on the gathered (B, P*ps, Hkv, d) view.  The TPU kernel's
+//     VMEM staging of the gathered view is not carried over: the rows are
+//     read in place.
 #include <math.h>
 
 #include "mx_quant.cuh"
@@ -221,25 +237,50 @@ mx_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DVL>
+// Where the decode kernels find the K/V rows.  Slab: k/v are (B, S, Hkv, ·)
+// with strides (sb, ss, sh) and pt is unused.  Paged: k/v are
+// (N, ps, Hkv, ·) pools, sb is the page stride, ss the in-page one, and
+// view position s of row b is read from page pt[b * P + s / ps].
+struct DecRows {
+  long long ksb, kss, ksh, vsb, vss, vsh;
+  const int* pt;
+  int P, ps, n_pages;
+};
+
+template <bool PAGED>
+__device__ __forceinline__ long long dec_row(const DecRows& r, long long sb,
+                                             long long ss, long long sh,
+                                             int b, int h, int s) {
+  if (PAGED) {
+    const int phys = min(max(r.pt[(long long)b * r.P + s / r.ps], 0),
+                         r.n_pages - 1);
+    return phys * sb + (long long)(s % r.ps) * ss + h * sh;
+  }
+  return b * sb + (long long)s * ss + h * sh;
+}
+
+template <int DVL, bool PAGED>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
 mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const uint8_t* __restrict__ valid,
                  __nv_bfloat16* __restrict__ out, int G, int S, int d, int dv,
-                 int H, long long ksb, long long kss, long long ksh,
-                 long long vsb, long long vss, long long vsh,
-                 long long valid_sb, int has_fmt, MxFmt f, float scale) {
+                 int H, DecRows rows, long long valid_sb, int has_fmt,
+                 MxFmt f, float scale) {
   extern __shared__ float sm[];
   float* qs = sm;                 // [G][d]
   float* sc = qs + G * d;         // [G][S]
   float* red = sc + G * S;        // [DEC_WARPS][G][dv], or warp scratch
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const __nv_bfloat16* kb = k + b * ksb + h * ksh;
-  const __nv_bfloat16* vb = v + b * vsb + h * vsh;
   const uint8_t* ok = valid + b * valid_sb;
+  auto krow = [&](int s) {
+    return k + dec_row<PAGED>(rows, rows.ksb, rows.kss, rows.ksh, b, h, s);
+  };
+  auto vrow = [&](int s) {
+    return v + dec_row<PAGED>(rows, rows.vsb, rows.vss, rows.vsh, b, h, s);
+  };
 
   for (int gg = warp; gg < G; gg += DEC_WARPS)
     for (int c0 = 0; c0 < d; c0 += 32) {
@@ -258,7 +299,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int gg = 0; gg < MAXG; ++gg) dots[gg] = 0.f;
     for (int c0 = 0; c0 < d; c0 += 32) {
       const int c = c0 + lane;
-      float x = c < d ? __bfloat162float(kb[s * kss + c]) : 0.f;
+      float x = c < d ? __bfloat162float(krow(s)[c]) : 0.f;
       if (has_fmt) x = mx_warp_quant(x, f);
 #pragma unroll
       for (int gg = 0; gg < MAXG; ++gg)
@@ -323,7 +364,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
       for (int j = 0; j < 32; ++j) {
         const int s = bs + j;
         vals[j] = (s < S && col < dv)
-                      ? __bfloat162float(vb[s * vss + col]) : 0.f;
+                      ? __bfloat162float(vrow(s)[col]) : 0.f;
         amax = mx_nanmax(amax, fabsf(vals[j]));
       }
       const int e = has_fmt ? mx_shared_exp(amax, f) : 0;
@@ -393,25 +434,23 @@ extern "C" int mx_decode_smem_bytes(int G, int S, int d, int dv) {
   return b > (1 << 30) ? (1 << 30) : (int)b;
 }
 
-extern "C" int mx_attn_decode(const void* q, const void* k, const void* v,
-                              const void* valid, void* out, int BH, int G,
-                              int S, int d, int dv, int H, long long ksb,
-                              long long kss, long long ksh, long long vsb,
-                              long long vss, long long vsh,
-                              long long valid_sb, int has_fmt, int mbits,
-                              int min_normal_exp, int e_max,
-                              float max_normal, float scale, void* stream) {
+template <bool PAGED>
+static int decode_launch(const void* q, const void* k, const void* v,
+                         const void* valid, void* out, int BH, int G, int S,
+                         int d, int dv, int H, const DecRows& rows,
+                         long long valid_sb, int has_fmt, int mbits,
+                         int min_normal_exp, int e_max, float max_normal,
+                         float scale, void* stream) {
   const int smem = mx_decode_smem_bytes(G, S, d, dv);
   if (G > MAXG || dv > MAXD || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal);
   cudaStream_t s = (cudaStream_t)stream;
 #define DEC_LAUNCH(N)                                                        \
-  mx_decode_kernel<N><<<BH, DEC_WARPS * 32, (size_t)smem, s>>>(                         \
+  mx_decode_kernel<N, PAGED><<<BH, DEC_WARPS * 32, (size_t)smem, s>>>(       \
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                      \
       (const __nv_bfloat16*)v, (const uint8_t*)valid, (__nv_bfloat16*)out,   \
-      G, S, d, dv, H, ksb, kss, ksh, vsb, vss, vsh, valid_sb, has_fmt, f,    \
-      scale)
+      G, S, d, dv, H, rows, valid_sb, has_fmt, f, scale)
   if (BH > 0) {
     switch (dv_lanes(dv)) {
       case 1: DEC_LAUNCH(1); break;
@@ -422,4 +461,41 @@ extern "C" int mx_attn_decode(const void* q, const void* k, const void* v,
   }
 #undef DEC_LAUNCH
   return (int)cudaGetLastError();
+}
+
+extern "C" int mx_attn_decode(const void* q, const void* k, const void* v,
+                              const void* valid, void* out, int BH, int G,
+                              int S, int d, int dv, int H, long long ksb,
+                              long long kss, long long ksh, long long vsb,
+                              long long vss, long long vsh,
+                              long long valid_sb, int has_fmt, int mbits,
+                              int min_normal_exp, int e_max,
+                              float max_normal, float scale, void* stream) {
+  const DecRows rows{ksb, kss, ksh, vsb, vss, vsh, nullptr, 0, 1, 1};
+  return decode_launch<false>(q, k, v, valid, out, BH, G, S, d, dv, H, rows,
+                              valid_sb, has_fmt, mbits, min_normal_exp,
+                              e_max, max_normal, scale, stream);
+}
+
+// q (B*H, G, d); k/v pools (N, ps, H, ·) with strides (ksn, kss, ksh) and
+// (vsn, vss, vsh); pt (B, P) int32; valid (B, P*ps) contiguous.
+extern "C" int mx_attn_decode_paged(const void* q, const void* k,
+                                    const void* v, const void* pt,
+                                    const void* valid, void* out, int B,
+                                    int H, int G, int P, int ps, int n_pages,
+                                    int d, int dv, long long ksn,
+                                    long long kss, long long ksh,
+                                    long long vsn, long long vss,
+                                    long long vsh, int has_fmt, int mbits,
+                                    int min_normal_exp, int e_max,
+                                    float max_normal, float scale,
+                                    void* stream) {
+  if (ps <= 0 || ps % 32 || n_pages <= 0 || P <= 0)
+    return (int)cudaErrorInvalidValue;
+  const DecRows rows{ksn, kss, ksh, vsn, vss, vsh, (const int*)pt, P, ps,
+                     n_pages};
+  return decode_launch<true>(q, k, v, valid, out, B * H, G, P * ps, d, dv, H,
+                             rows, (long long)P * ps, has_fmt, mbits,
+                             min_normal_exp, e_max, max_normal, scale,
+                             stream);
 }

@@ -29,7 +29,8 @@ from . import build, ref
 
 __all__ = ["mx_quantize", "mx_matmul", "mx_matmul_dgrad", "mx_matmul_wgrad",
            "mx_flash_attention", "mx_flash_attention_bwd",
-           "mx_attention_decode", "LAUNCHES", "reset_launches", "KERNELS"]
+           "mx_attention_decode", "mx_attention_decode_paged", "LAUNCHES",
+           "reset_launches", "KERNELS"]
 
 #: Launch count of each kernel: one per launch, counted only where the
 #: kernel is launched (never for the plain versions).
@@ -37,7 +38,8 @@ LAUNCHES: Dict[str, int] = {"mx_quantize": 0, "mx_matmul": 0,
                             "mx_matmul_dgrad": 0, "mx_matmul_wgrad": 0,
                             "mx_flash_attention": 0,
                             "mx_flash_attention_bwd": 0,
-                            "mx_attention_decode": 0}
+                            "mx_attention_decode": 0,
+                            "mx_attention_decode_paged": 0}
 
 #: name -> (source file, the Pallas function it replaces)
 KERNELS = {
@@ -56,6 +58,9 @@ KERNELS = {
         "src/repro/kernels/mx_attention.py:275"),
     "mx_attention_decode": ("src/repro_torch/kernels/csrc/mx_attention.cu",
                             "src/repro/kernels/mx_attention.py:455"),
+    "mx_attention_decode_paged": (
+        "src/repro_torch/kernels/csrc/mx_attention.cu",
+        "src/repro/kernels/mx_attention.py:407"),
 }
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -80,6 +85,8 @@ _SIGNATURES = {
     "mx_attn_decode": ("mx_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                         _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
                                         _LL, _I, *_FMT, _F, _P]),
+    "mx_attn_decode_paged": ("mx_attention", [_P] * 6 + [_I] * 8 + [_LL] * 6
+                             + [_I, *_FMT, _F, _P]),
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 _KIND = {"causal": 0, "full": 1, "window": 2}
@@ -399,4 +406,55 @@ def mx_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             BH, G, S, d, dv, H, k4.stride(0), k4.stride(1), k4.stride(2),
             v4.stride(0), v4.stride(1), v4.stride(2), valid.stride(0),
             int(fmt is not None), *_fmt_args(fmt), 1.0 / math.sqrt(d))
+    return out
+
+
+def mx_attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, page_table: torch.Tensor,
+                              valid: torch.Tensor,
+                              fmt: Optional[ElementFormat],
+                              block: int = MX_BLOCK,
+                              scale_mode: str = "floor") -> torch.Tensor:
+    """Paged decode: q (BH, G, d) with BH = B * H against (N, ps, H, ·)
+    page pools through the (B, P) int32 page table, with valid (B, P*ps)
+    per view position.  Unmapped (negative) entries read page 0, as the
+    gather of the plain version does; ``valid`` masks them."""
+    if not q.is_cuda:
+        return ref.mx_attention_decode_paged_ref(q, k_pool, v_pool,
+                                                 page_table, valid, fmt,
+                                                 block, scale_mode)
+    name = "mx_attention_decode_paged"
+    _check_cuda(name, q, k_pool, v_pool, page_table, valid)
+    _check_mx(name, fmt, block, scale_mode)
+    if {q.dtype, k_pool.dtype, v_pool.dtype} != {torch.bfloat16}:
+        raise TypeError(f"{name}: bfloat16 q and pools")
+    if page_table.dtype != torch.int32 or valid.dtype != torch.bool:
+        raise TypeError(f"{name}: int32 page table and bool validity mask")
+    N, ps, H, d = k_pool.shape
+    dv = v_pool.shape[-1]
+    B, P = page_table.shape
+    BH, G = q.shape[0], q.shape[1]
+    if (BH != B * H or q.shape[2] != d or v_pool.shape[:3] != (N, ps, H)
+            or valid.shape != (B, P * ps)):
+        raise ValueError(f"{name}: shapes {tuple(q.shape)}, "
+                         f"{tuple(k_pool.shape)}, {tuple(v_pool.shape)}, "
+                         f"{tuple(page_table.shape)}, {tuple(valid.shape)}")
+    if ps % block or ps % MX_BLOCK:
+        raise ValueError(f"{name}: page size {ps} must be a multiple of the "
+                         f"MX block ({block}), so no block straddles a page")
+    if k_pool.stride(-1) != 1 or v_pool.stride(-1) != 1:
+        raise ValueError(f"{name}: head dim must be contiguous")
+    if (G > 8 or dv > 128
+            or _fn("mx_decode_smem_bytes")(G, P * ps, d, dv) > 48 * 1024):
+        raise ValueError(f"{name}: G={G}, view {P * ps}, d={d}, dv={dv} "
+                         "does not fit the kernel's shared memory")
+    q = q.contiguous()
+    page_table = page_table.contiguous()
+    valid = valid.contiguous()
+    out = torch.empty((BH, G, dv), dtype=q.dtype, device=q.device)
+    _launch(name, "mx_attn_decode_paged", q.data_ptr(), k_pool.data_ptr(),
+            v_pool.data_ptr(), page_table.data_ptr(), valid.data_ptr(),
+            out.data_ptr(), B, H, G, P, ps, N, d, dv, *k_pool.stride()[:3],
+            *v_pool.stride()[:3], int(fmt is not None), *_fmt_args(fmt),
+            1.0 / math.sqrt(d))
     return out

@@ -10,7 +10,9 @@ Layouts are the reference's folded ones:
     q (BH, G, Tq, d), k (BH, Tk, d), v (BH, Tk, dv)   flash forward/backward
     q (BH, G, d),     k (BH, S, d),  v (BH, S, dv)    decode
 The decode version also takes the KV cache in its model layout
-(B, S, Hkv, d) with a (B, S) mask, which it folds first.
+(B, S, Hkv, d) with a (B, S) mask, which it folds first.  The paged decode
+version gathers (N, ps, Hkv, d) page pools through a (B, P) page table
+into that folded layout and runs the decode version on the view.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from repro_torch.core.mx import MX_BLOCK, quantize_mx
 __all__ = ["mx_quantize_ref", "mx_matmul_ref", "mx_matmul_dgrad_ref",
            "mx_matmul_wgrad_ref", "mx_flash_attention_ref",
            "mx_flash_attention_bwd_ref", "mx_attention_decode_ref",
-           "attn_tile_mask", "attn_tile_needed", "attn_tiles", "fold_cache",
+           "gather_pages", "mx_attention_decode_paged_ref", "attn_tile_mask", "attn_tile_needed", "attn_tiles", "fold_cache",
            "NEG_INF"]
 
 NEG_INF = -1e30
@@ -263,3 +265,32 @@ def mx_attention_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vv = quantize_mx(v.float(), fmt, axis=-2, block=block,
                      scale_mode=scale_mode)
     return torch.einsum("bgs,bsd->bgd", prq, vv).to(q.dtype)
+
+
+def gather_pages(pool: torch.Tensor, page_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """The folded (B*H, P*ps, d) view of a (N, ps, H, d) page pool through
+    a (B, P) page table: view position ``t`` of row ``b`` is offset
+    ``t % ps`` of page ``page_table[b, t // ps]``.  Entries outside
+    [0, N) are clamped (an unmapped -1 reads page 0); callers mask those
+    view positions out."""
+    B, P = page_table.shape
+    N, ps, H, d = pool.shape
+    g = pool[page_table.long().clamp(0, N - 1)]          # (B, P, ps, H, d)
+    return g.permute(0, 3, 1, 2, 4).reshape(B * H, P * ps, d)
+
+
+def mx_attention_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor,
+                                  page_table: torch.Tensor,
+                                  valid: torch.Tensor,
+                                  fmt: Optional[ElementFormat],
+                                  block: int = MX_BLOCK,
+                                  scale_mode: str = "floor") -> torch.Tensor:
+    """Paged decode: the decode version on the gathered view.  q (BH, G, d)
+    with BH = B * H; pools (N, ps, H, ·); page_table (B, P); valid
+    (B, P*ps) per view position."""
+    H = k_pool.shape[2]
+    return mx_attention_decode_ref(
+        q, gather_pages(k_pool, page_table), gather_pages(v_pool, page_table),
+        torch.repeat_interleave(valid, H, dim=0), fmt, block, scale_mode)

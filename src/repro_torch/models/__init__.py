@@ -3,10 +3,12 @@
 from .proxy import (ProxyConfig, proxy_apply, proxy_batch, proxy_init,
                     proxy_loss, teacher_init)
 from .transformer import (LMConfig, block_plan, check_supported, init_cache,
-                          lm_apply, lm_decode_step, lm_init, lm_loss,
-                          lm_prefill, prefill_supported, tree_map)
+                          init_cache_paged, lm_apply, lm_decode_step,
+                          lm_init, lm_loss, lm_prefill, lm_prefill_chunk,
+                          prefill_supported, tree_map)
 
 __all__ = ["LMConfig", "block_plan", "check_supported", "init_cache",
-           "lm_apply", "lm_decode_step", "lm_init", "lm_loss", "lm_prefill",
-           "prefill_supported", "tree_map", "ProxyConfig", "proxy_apply",
-           "proxy_batch", "proxy_init", "proxy_loss", "teacher_init"]
+           "init_cache_paged", "lm_apply", "lm_decode_step", "lm_init",
+           "lm_loss", "lm_prefill", "lm_prefill_chunk", "prefill_supported",
+           "tree_map", "ProxyConfig", "proxy_apply", "proxy_batch",
+           "proxy_init", "proxy_loss", "teacher_init"]

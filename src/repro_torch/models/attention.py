@@ -3,21 +3,26 @@
 Counterpart of ``repro.models.attention`` for dense attention.  Projections
 go through ``qdense`` (the MX GEMM kernels); mixing goes through
 ``mx_contract(kind="flash_attn")`` on the folded (BH, G, T, d) layout for
-training and prefill and ``kind="attn_decode"`` for one-token decode.  QK-norm is an
+training, prefill and prefill chunks, ``kind="attn_decode"`` for one-token
+decode against a slab cache and ``kind="attn_decode_paged"`` for one-token
+decode against page pools through a page table.  QK-norm is an
 RMSNorm without bias whatever ``cfg.norm`` says, and runs without the
 layer-norm quantization, as in the reference.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.core import AttnSpec, QuantConfig, mx_contract
 from .layers import apply_norm, dense_init, norm_init, qdense, rope
 
-__all__ = ["attn_init", "attention", "attention_decode", "attention_prefill",
-           "decode_valid_mask", "flash_attention"]
+__all__ = ["attn_init", "attention", "attention_decode",
+           "attention_decode_paged", "attention_prefill",
+           "attention_prefill_chunk", "decode_valid_mask", "flash_attention",
+           "paged_valid_mask", "paged_write_slots"]
 
 
 def attn_init(generator: torch.Generator, d_model: int, n_heads: int,
@@ -137,3 +142,81 @@ def attention_decode(p, x, cache, *, qcfg: QuantConfig, n_heads: int,
                     valid=decode_valid_mask(pos, S))
     o = o.reshape(B, 1, n_heads * d_head).to(x.dtype)
     return qdense(p["wo"], o, qcfg), cache
+
+
+def paged_valid_mask(page_table: torch.Tensor, pos: torch.Tensor,
+                     page_size: int) -> torch.Tensor:
+    """(B, P*ps) validity of each view position for paged decode: its page
+    is mapped (>= 0) and its logical position (= view position) is <= the
+    row's ``pos``.  A dead row (all -1) has no valid position."""
+    B, P = page_table.shape
+    vp = torch.arange(P * page_size, device=page_table.device)
+    allocated = (page_table >= 0)[:, vp // page_size]
+    return allocated & (vp[None, :] <= pos[:, None])
+
+
+def paged_write_slots(page_table: torch.Tensor, pos: torch.Tensor,
+                      page_size: int, live: Optional[torch.Tensor] = None):
+    """(rows, page, off): where a paged decode step writes each live row's
+    new K/V, its tail page ``page_table[row, pos // ps]`` at ``pos % ps``.
+    ``live`` (n,) long holds the rows whose tail page is mapped, where the
+    caller knows them (the engine does); None finds them from the table at
+    the cost of one host sync.  A dead row writes nothing: its -1 entry
+    would wrap to page N-1."""
+    if live is None:
+        rows = torch.arange(page_table.shape[0], device=page_table.device)
+        live = torch.nonzero(
+            page_table[rows, pos // page_size] >= 0).squeeze(1)
+    lpos = pos[live]
+    return live, page_table[live, lpos // page_size].long(), lpos % page_size
+
+
+def attention_decode_paged(p, x, cache, *, qcfg: QuantConfig, n_heads: int,
+                           n_kv: int, d_head: int, pos: torch.Tensor,
+                           page_table: torch.Tensor, slots, valid,
+                           rope_theta: float = 1e4):
+    """One-token decode against page pools.  x (B, 1, D); cache {"k", "v"}:
+    (N, ps, Hkv, d) pools shared by every row through the (B, P) int32
+    ``page_table`` (physical page of logical page ``t // ps``; -1 =
+    unmapped); pos (B,).  The new K/V rows go into the ``slots`` of
+    ``paged_write_slots`` in place, and attention reads the positions that
+    ``valid`` (``paged_valid_mask``) admits.  Both depend only on the table
+    and ``pos``, so the caller computes them once for every layer."""
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(p, x, qcfg, n_heads, n_kv, d_head,
+                                   pos[:, None], rope_theta)
+    rows, page, off = slots
+    cache["k"][page, off] = k_new[rows, 0].to(cache["k"].dtype)
+    cache["v"][page, off] = v_new[rows, 0].to(cache["v"].dtype)
+    G = n_heads // n_kv
+    qf = q[:, 0].reshape(B * n_kv, G, d_head)
+    o = mx_contract(qf, (cache["k"], cache["v"]), qcfg,
+                    kind="attn_decode_paged", valid=valid, pages=page_table)
+    o = o.reshape(B, 1, n_heads * d_head).to(x.dtype)
+    return qdense(p["wo"], o, qcfg), cache
+
+
+def attention_prefill_chunk(p, x, prior_k, prior_v, *, qcfg: QuantConfig,
+                            n_heads: int, n_kv: int, d_head: int, positions,
+                            spec: AttnSpec, kv_mask=None,
+                            rope_theta: float = 1e4):
+    """One chunk of a chunked prefill.  x (B, C, D) at absolute positions
+    ``spec.q_offset ..``; prior_k/prior_v (B, q_offset, Hkv, d) are the
+    prefix K/V gathered from the page pools.  The chunk's queries attend
+    prefix + chunk through the rectangular causal flash forward
+    (``q_offset``).  ``kv_mask`` (B, C) zeroes the K/V of padded tail
+    positions before attention, so pads are neither attended nor part of
+    the at-rest MX block scales.  Returns (out (B, C, D), k, v) with the
+    chunk's (B, C, Hkv, d) K/V for the caller to write into pages."""
+    B, C = x.shape[:2]
+    q, k, v = _project_qkv(p, x, qcfg, n_heads, n_kv, d_head, positions,
+                           rope_theta)
+    if kv_mask is not None:
+        m = kv_mask[:, :, None, None]
+        k = torch.where(m, k, 0.0)
+        v = torch.where(m, v, 0.0)
+    k_full = torch.cat([prior_k.to(k.dtype), k], dim=1)
+    v_full = torch.cat([prior_v.to(v.dtype), v], dim=1)
+    o = flash_attention(q, k_full, v_full, qcfg, spec)
+    out = qdense(p["wo"], o.reshape(B, C, n_heads * d_head), qcfg)
+    return out, k, v

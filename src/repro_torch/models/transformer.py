@@ -10,12 +10,15 @@ where each ``block`` has the reference's per-block names (``ln1``, ``attn``,
 ``ln2``, ``mlp``).  Layer ``i`` is the reference's stacked group entry
 ``blocks[g]["b{j}"][r]`` in plan order (see ``convert.params_from_jax``).
 The decode cache is a list with one ``{"k", "v"}`` dict of
-(B, S, Hkv, d) bf16 tensors per layer, updated in place.  Layers run as a
+(B, S, Hkv, d) bf16 tensors per layer, updated in place; the paged cache
+(``init_cache_paged``) is the same list of (N, ps, Hkv, d) page pools,
+addressed through one (B, P) page table.  Layers run as a
 Python loop over that list; the reference's activation checkpointing
 (``remat``) is not ported yet: at olmo-paper's size the activations fit.
 
 MoE, MLA, recurrent, xLSTM, windowed, encoder-decoder and frontend configs
-raise ``NotImplementedError``: they come with a later slice of the port.
+raise ``NotImplementedError``: they come with a later slice of the port
+(ROADMAP Queue A item 4).
 """
 from __future__ import annotations
 
@@ -27,15 +30,16 @@ import torch
 
 from repro_torch.core import AttnSpec, QuantConfig
 from repro_torch.devices import resolve_device
-from .attention import (attention, attention_decode, attention_prefill,
-                        attn_init)
+from .attention import (attention, attention_decode, attention_decode_paged,
+                        attention_prefill, attention_prefill_chunk,
+                        attn_init, paged_valid_mask, paged_write_slots)
 from .layers import (apply_norm, dense_init, embed_init, embed_lookup,
                      norm_init, qdense)
 from .mlp import mlp_apply, mlp_init
 
 __all__ = ["LMConfig", "block_plan", "lm_init", "lm_apply", "lm_loss",
            "init_cache", "lm_prefill", "lm_decode_step", "prefill_supported",
-           "check_supported"]
+           "check_supported", "init_cache_paged", "lm_prefill_chunk"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +110,8 @@ def check_supported(cfg: LMConfig) -> None:
         raise NotImplementedError(
             f"config {cfg.name!r} needs {', '.join(later)}: the port serves "
             "dense 'attn' stacks; the other architectures come with the "
-            "later slice that ports MoE, MLA and the recurrent blocks")
+            "later slice that ports MoE, MLA and the recurrent blocks "
+            "(ROADMAP Queue A item 4)")
 
 
 def block_plan(cfg: LMConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -166,6 +171,19 @@ def init_cache(cfg: LMConfig, B: int, S: int, device=None) -> List[dict]:
     check_supported(cfg)
     device = resolve_device(device)
     shp = (B, S, cfg.n_kv_heads, cfg.d_head)
+    return [{"k": torch.zeros(shp, dtype=torch.bfloat16, device=device),
+             "v": torch.zeros(shp, dtype=torch.bfloat16, device=device)}
+            for _ in range(cfg.n_layers)]
+
+
+def init_cache_paged(cfg: LMConfig, n_pages: int, page_size: int,
+                     device=None) -> List[dict]:
+    """Paged decode cache: one zeroed (N, ps, Hkv, d) bf16 K/V pool pair
+    per layer, shared by every row through the engine's page table (every
+    ported layer pages)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    shp = (n_pages, page_size, cfg.n_kv_heads, cfg.d_head)
     return [{"k": torch.zeros(shp, dtype=torch.bfloat16, device=device),
              "v": torch.zeros(shp, dtype=torch.bfloat16, device=device)}
             for _ in range(cfg.n_layers)]
@@ -254,22 +272,69 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
     return qdense(params["lm_head"], h_last, qcfg), caches
 
 
+def lm_prefill_chunk(params, tokens: torch.Tensor, prior: List[dict],
+                     start: int, cfg: LMConfig, qcfg: QuantConfig,
+                     logit_positions: Optional[torch.Tensor] = None,
+                     kv_mask: Optional[torch.Tensor] = None):
+    """One chunk of a chunked prefill: ``tokens`` (B, C) at absolute
+    positions ``start .. start+C-1`` attend the prefix written before them
+    through ``prior``, a per-layer list of ``{"k", "v"}`` (B, start, Hkv, d)
+    gathered from the page pools.  Returns (logits (B, vocab) at
+    ``logit_positions``, default C-1, and the per-layer list of the chunk's
+    (B, C, Hkv, d) K/V for the caller to write into pages).  ``kv_mask``
+    (B, C) zeroes padded tail K/V, so a fixed chunk shape can carry a
+    shorter last chunk."""
+    check_supported(cfg)
+    B, C = tokens.shape
+    h = embed_lookup(params["embed"], tokens)
+    positions = torch.arange(start, start + C,
+                             device=tokens.device)[None].expand(B, C)
+    spec = cfg.attn_spec().with_offset(start)
+    chunk = []
+    for lp, lc in zip(params["layers"], prior):
+        hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
+        a, ck, cv = attention_prefill_chunk(
+            lp["attn"], hn, lc["k"], lc["v"], qcfg=qcfg, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, d_head=cfg.d_head, positions=positions,
+            spec=spec, kv_mask=kv_mask, rope_theta=cfg.rope_theta)
+        h = _block_rest(h, lp, cfg, qcfg, a)
+        chunk.append({"k": ck, "v": cv})
+    h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
+    if logit_positions is None:
+        logit_positions = torch.full((B,), C - 1, dtype=torch.long,
+                                     device=tokens.device)
+    h_last = h[torch.arange(B, device=tokens.device), logit_positions]
+    return qdense(params["lm_head"], h_last, qcfg), chunk
+
+
 def lm_decode_step(params, cache: List[dict], tok: torch.Tensor,
-                   pos: torch.Tensor, cfg: LMConfig, qcfg: QuantConfig):
+                   pos: torch.Tensor, cfg: LMConfig, qcfg: QuantConfig,
+                   page_table: Optional[torch.Tensor] = None,
+                   live: Optional[torch.Tensor] = None):
     """One decode step.  tok (B, 1) int; pos (B,) per-row positions (a
     scalar broadcasts).  Writes the new K/V into ``cache`` in place and
-    returns (logits (B, vocab), cache)."""
+    returns (logits (B, vocab), cache).  With ``page_table`` ((B, P)
+    int32), ``cache`` is ``init_cache_paged``'s pools and every layer
+    decodes through the table; ``live`` (n,) long names the rows whose
+    tail page is mapped (see ``paged_write_slots``)."""
     check_supported(cfg)
     B = tok.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.long, device=tok.device)
     pos = pos.expand(B) if pos.ndim == 0 else pos
+    kw = dict(qcfg=qcfg, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+              d_head=cfg.d_head, pos=pos, rope_theta=cfg.rope_theta)
+    decode = attention_decode
+    if page_table is not None:
+        # The write slots and the mask are the same in every layer.
+        ps = cache[0]["k"].shape[1]
+        kw.update(page_table=page_table,
+                  slots=paged_write_slots(page_table, pos, ps, live),
+                  valid=paged_valid_mask(page_table, pos, ps))
+        decode = attention_decode_paged
     h = embed_lookup(params["embed"], tok)
     for lp, lc in zip(params["layers"], cache):
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
-        a, _ = attention_decode(lp["attn"], hn, lc, qcfg=qcfg,
-                                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                                d_head=cfg.d_head, pos=pos,
-                                rope_theta=cfg.rope_theta)
+        a, _ = decode(lp["attn"], hn, lc, **kw)
         h = _block_rest(h, lp, cfg, qcfg, a)
     h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
     return qdense(params["lm_head"], h[:, 0], qcfg), cache

@@ -40,6 +40,8 @@ def _is_forbidden(name: str) -> bool:
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert {PORT / "serve" / "pages.py", PORT / "serve" / "decode.py"} \
+        <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _is_forbidden(m)]
     assert not bad, bad
@@ -48,7 +50,8 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
 def test_port_imports_in_a_process_without_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.convert,"
             " repro_torch.configs, repro_torch.train, repro_torch.optim, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.serve.pages, "
+            "repro_torch.serve.decode; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
@@ -60,13 +63,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.core import preset
     from repro_torch.convert import params_from_jax
     from repro_torch.models import lm_init
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import PagedServeEngine, ServeEngine
 
     cfg = get_config("olmo-paper", "smoke")
     params = lm_init(cfg, torch.Generator().manual_seed(0), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(params, cfg, preset("bf16"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedServeEngine(params, cfg, preset("bf16"))
     with pytest.raises(RuntimeError, match="CUDA"):
         lm_init(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
