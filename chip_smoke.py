@@ -49,10 +49,14 @@ Phases, each of which raises on failure:
                 streams agree under the margin rule.
 The kernel phase also holds the dgrad, wgrad and flash dgrad kernels at
 the training shapes (4096 tokens; BH 64, T 512) against their plain
-versions, with planted faults in the flash dgrad that its check rejects,
-and the paged decode kernel at the paged engine's shapes (6 rows, views
-of 256 and 512) against the slab decode kernel on the gathered view and
-its plain version, with planted page-table faults.
+versions, with planted faults that their checks reject (dgrad with W
+quantized along K, wgrad with x unquantized; three in the flash dgrad),
+dgrad and wgrad also at ragged sizes (contractions 48, 70 and 1000, raw
+gradients) and on the proxy's fp32 path, each called twice for equal
+bits, with the pre-pass's share of their time; and the paged decode
+kernel at the paged engine's shapes (6 rows, views of 256 and 512)
+against the slab decode kernel on the gathered view and its plain
+version, with planted page-table faults.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
@@ -101,7 +105,14 @@ def _kernel_us(prof, skip=frozenset()) -> float:
 
 
 def time_ms(fn, iters: int, flush) -> float:
-    """Device time (ms) of one ``fn`` call, L2 flushed before each.
+    """Device time (ms) of one ``fn`` call, L2 flushed before each (see
+    ``time_parts_ms``)."""
+    return time_parts_ms(fn, iters, flush)[0]
+
+
+def time_parts_ms(fn, iters: int, flush):
+    """Device time (ms) of one ``fn`` call, L2 flushed before each, and
+    that time by kernel name.
 
     The profiler sums the device time of the kernels ``fn`` launches in a
     window of flush + ``fn`` pairs, leaving out the kernels a window of
@@ -130,7 +141,13 @@ def time_ms(fn, iters: int, flush) -> float:
     if us <= 0:
         raise RuntimeError(f"the profiler saw no device time for the call "
                            f"(flush kernels {sorted(flush_keys)})")
-    return us / iters / 1e3
+    parts = {row.key: getattr(row, "device_time_total",
+                              getattr(row, "cuda_time_total", 0.0))
+             / iters / 1e3
+             for row in prof.key_averages()
+             if row.device_type == torch.autograd.DeviceType.CUDA
+             and row.key not in flush_keys}
+    return us / iters / 1e3, parts
 
 
 def bound(bytes_moved: float, flops: float):
@@ -219,15 +236,15 @@ def planted_decode(q, kc, vc, valid, fmt, fault):
     return torch.einsum("bgs,bsd->bgd", pq, vq).to(q.dtype)
 
 
-def check_controls(what, want, floor, planted, faults):
-    """The fault-free planted version must pass ``attn_check`` against the
-    plain version ``want`` and every planted fault must fail it."""
-    ok, worst = attn_check(planted(None), want, floor)
+def check_controls(what, check, planted, faults):
+    """The fault-free planted version must pass ``check`` (got -> (ok,
+    worst err/tol, ...)) and every planted fault must fail it."""
+    ok, worst = check(planted(None))[:2]
     if not ok:
         raise AssertionError(f"{what}: fault-free control fails the check "
                              f"(worst err/tol {worst})")
     for fault in faults:
-        accepted, worst = attn_check(planted(fault), want, floor)
+        accepted, worst = check(planted(fault))[:2]
         print(f"[controls] {what}: {fault!r} worst err/tol {worst:.2f} "
               f"({'ACCEPTED' if accepted else 'rejected'})", flush=True)
         if accepted:
@@ -263,10 +280,10 @@ def phase_kernels():
     rows = {}
 
     def record(name, case, primary, err, ok, ms, plain_ms, library_ms,
-               bnd):
+               bnd, **extra):
         entry = {"case": case, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": library_ms,
-                 "bound_ms": bnd[0], "bound_by": bnd[1]}
+                 "bound_ms": bnd[0], "bound_by": bnd[1], **extra}
         print(f"[kernels] {'ok  ' if ok else 'FAIL'} {name} {json.dumps(entry)}",
               flush=True)
         if not ok:
@@ -327,7 +344,8 @@ def phase_kernels():
         lse_err = (lse - lser).abs().max().item()
         ok = ok and lse_err <= 1e-4
         if fmt is not None:
-            check_controls(f"flash bucket {T}", orf, floor,
+            check_controls(f"flash bucket {T}",
+                           lambda got: attn_check(got, orf, floor),
                            lambda fault: planted_flash(q, k, v, fmt, fault),
                            FLASH_FAULTS)
         lib = None
@@ -356,7 +374,7 @@ def phase_kernels():
         floor = attn_floor(vc, S)
         ok, worst = attn_check(o, orf, floor)
         if fmt is not None:
-            check_controls("decode", orf, floor,
+            check_controls("decode", lambda got: attn_check(got, orf, floor),
                            lambda fault: planted_decode(q, kc, vc, valid,
                                                         fmt, fault),
                            DECODE_FAULTS)
@@ -576,11 +594,53 @@ def flash_bwd_check(got, want, bounds):
     return worst <= 1.0, worst
 
 
+# GEMM tolerance, per element: one bf16 ulp of the plain result (for fp32
+# results |want| * 2^-23) for the final rounding, plus sqrt(n) * 2^-24 *
+# sum_k |Q(a)_k Q(b)_k| for the n-term fp32 sums, which the kernel and the
+# plain version take in different orders.  Rounding errors of such a sum
+# add up like a random walk, ~sqrt(n) * 2^-24 * |partial sums|, and every
+# partial sum is below the sum of the magnitudes.  The worst-case bound
+# n * 2^-24 * sum |terms| is sqrt(n) times looser: at the lm_head's n =
+# 32000 it admits errors of about a quarter of a typical output, and W
+# quantized along K instead of N passes it (tests/test_torch_gemm_sm90.py).
+GEMM_FAULTS = {"dgrad": ("w quantized along K instead of N",),
+               "wgrad": ("x left unquantized",)}
+
+
+def gemm_check(got, want, qa, qb, n_terms: int):
+    """(ok, worst, max_abs_err) of a GEMM result against its plain version
+    ``want``; ``qa @ qb`` sums the magnitudes of each element's terms and
+    ``worst`` is the largest error over what its element allows."""
+    import torch
+    w = want.float()
+    last = (w.abs() * 2.0 ** -23 if want.dtype == torch.float32
+            else ulp_bf16(w))
+    tol = last + math.sqrt(n_terms) * 2.0 ** -24 * (qa @ qb)
+    diff = (got.float() - w).abs()
+    worst = (diff / tol.clamp(min=2.0 ** -149)).max().item()
+    return bool((diff <= tol).all()), worst, diff.max().item()
+
+
+def planted_gemm(kind, a, b, fa, fb, fault=None):
+    """The plain dgrad (a = dy (M, N), b = w (K, N)) or wgrad (a = x (T, K),
+    b = dy (T, N)) with one planted ``fault`` (None: none)."""
+    import torch
+    from repro_torch.core import quantize_mx
+    if kind == "dgrad":
+        axis = 0 if fault == "w quantized along K instead of N" else 1
+        aq, bq = quantize_mx(a, fa, axis=-1), quantize_mx(b, fb, axis=axis)
+        return torch.matmul(aq.float(), bq.float().T).to(a.dtype)
+    aq = a if fault == "x left unquantized" else quantize_mx(a, fa, axis=0)
+    bq = quantize_mx(b, fb, axis=0)
+    return torch.matmul(aq.float().T, bq.float()).to(a.dtype)
+
+
 def training_kernels(rnd, record, flush):
     """dgrad and wgrad of wq, w_up, w_down and the lm_head over 4096 tokens
-    under E4M3, E5M2 and mixed formats, the fp32 GEMMs of the proxy, the
-    forward GEMM at the lm_head's training shape, and the flash dgrad at
-    BH 64, T 512, d 64, causal, in e4m3 and bf16."""
+    under E4M3, E5M2 and mixed formats (planted faults and times in E4M3),
+    at ragged sizes, the fp32 GEMMs of the proxy, the forward GEMM at the
+    lm_head's training shape, and the flash dgrad at BH 64, T 512, d 64,
+    causal, in e4m3 and bf16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core import E4M3, E5M2, AttnSpec
@@ -589,11 +649,56 @@ def training_kernels(rnd, record, flush):
     def absq(x, fmt, axis):
         return ref.mx_quantize_ref(x, fmt, axis=axis).float().abs()
 
-    def gemm_ok(got, want, qa, qb, n_terms):
-        # one bf16 ulp of the result plus the fp32 accumulation bound
-        tol = ulp_bf16(want.float()) + n_terms * 2.0 ** -24 * (qa @ qb)
-        diff = (got.float() - want.float()).abs()
-        return diff.max().item(), bool((diff <= tol).all())
+    def gemm_case(kind, a, b, fa, fb, case, primary=False, timed=False,
+                  faults=False):
+        """dgrad (a = dy, b = w) or wgrad (a = x, b = dy): the kernel against
+        its plain version and against itself on a second call, the planted
+        faults when asked, and, when timed, the kernel (with its pre-pass's
+        share), the plain version and the unquantized torch.matmul."""
+        if kind == "dgrad":
+            def fn():
+                return ops.mx_matmul_dgrad(a, b, fa, fb)
+
+            def plain():
+                return ref.mx_matmul_dgrad_ref(a, b, fa, fb)
+
+            def lib():
+                return torch.matmul(a, b.T)
+            qa, qb, n = absq(a, fa, -1), absq(b, fb, 1).T, a.shape[-1]
+            M, K = a.shape[0], b.shape[0]
+        else:
+            def fn():
+                return ops.mx_matmul_wgrad(a, b, fa, fb)
+
+            def plain():
+                return ref.mx_matmul_wgrad_ref(a, b, fa, fb)
+
+            def lib():
+                return torch.matmul(a.T, b)
+            qa, qb, n = absq(a, fa, 0).T, absq(b, fb, 0), a.shape[0]
+            M, K = a.shape[1], b.shape[1]
+        got, want = fn(), plain()
+        ok, worst, err = gemm_check(got, want, qa, qb, n)
+        replay = torch.equal(got, fn())
+        if faults:
+            check_controls(f"{kind} {case}",
+                           lambda g: gemm_check(g, want, qa, qb, n),
+                           lambda f: planted_gemm(kind, a, b, fa, fb, f),
+                           GEMM_FAULTS[kind])
+        ms = plain_ms = lib_ms = None
+        extra = {}
+        if timed:
+            ms, parts = time_parts_ms(fn, 10, flush)
+            pre = sum(v for k_, v in parts.items() if "mx_operand" in k_)
+            extra = {"prepass_ms": pre, "prepass_share": pre / ms}
+            plain_ms = time_ms(plain, 3, flush)
+            lib_ms = time_ms(lib, 10, flush)
+        size = a.element_size()
+        record(f"mx_matmul_{kind}",
+               f"{case} (worst err/tol {worst:.3f}, replay equal {replay})",
+               primary, err, ok and replay, ms, plain_ms, lib_ms,
+               bound(size * (M * n + n * K + M * K), 2 * M * n * K),
+               **extra)
 
     fmts = (("e4m3", E4M3, E4M3), ("e5m2", E5M2, E5M2),
             ("mixed", E5M2, E4M3))
@@ -605,44 +710,21 @@ def training_kernels(rnd, record, flush):
             timed = label == "e4m3"
             primary = timed and wname == "lm_head"
             # dgrad: (g, w) formats; mixed is E5M2 gradients, E4M3 weights
-            got = ops.mx_matmul_dgrad(dy, w, f1, f2)
-            want = ref.mx_matmul_dgrad_ref(dy, w, f1, f2)
-            err, ok = gemm_ok(got, want, absq(dy, f1, -1),
-                              absq(w, f2, 1).T, N)
-            record("mx_matmul_dgrad",
-                   f"{wname} dx {TOKENS}x{N}->{K} {label}", primary, err,
-                   ok,
-                   time_ms(lambda: ops.mx_matmul_dgrad(dy, w, f1, f2), 10,
-                           flush) if timed else None,
-                   time_ms(lambda: ref.mx_matmul_dgrad_ref(dy, w, f1, f2),
-                           3, flush) if timed else None,
-                   time_ms(lambda: torch.matmul(dy, w.T), 10, flush)
-                   if timed else None,
-                   bound(2 * (TOKENS * N + K * N + TOKENS * K),
-                         2 * TOKENS * N * K))
+            gemm_case("dgrad", dy, w, f1, f2,
+                      f"{wname} dx {TOKENS}x{N}->{K} {label}", primary,
+                      timed, timed)
             # wgrad: (a, g) formats; mixed is E4M3 activations, E5M2 grads
             fa, fg = (f2, f1) if label == "mixed" else (f1, f2)
-            got = ops.mx_matmul_wgrad(x, dy, fa, fg)
-            want = ref.mx_matmul_wgrad_ref(x, dy, fa, fg)
-            err, ok = gemm_ok(got, want, absq(x, fa, 0).T,
-                              absq(dy, fg, 0), TOKENS)
-            record("mx_matmul_wgrad",
-                   f"{wname} dW T{TOKENS} {K}x{N} {label}", primary, err,
-                   ok,
-                   time_ms(lambda: ops.mx_matmul_wgrad(x, dy, fa, fg), 10,
-                           flush) if timed else None,
-                   time_ms(lambda: ref.mx_matmul_wgrad_ref(x, dy, fa, fg),
-                           3, flush) if timed else None,
-                   time_ms(lambda: torch.matmul(x.T, dy), 10, flush)
-                   if timed else None,
-                   bound(2 * (TOKENS * K + TOKENS * N + K * N),
-                         2 * TOKENS * N * K))
+            gemm_case("wgrad", x, dy, fa, fg,
+                      f"{wname} dW T{TOKENS} {K}x{N} {label}", primary,
+                      timed, timed)
         if wname == "lm_head":
             got = ops.mx_matmul(x, w, E4M3, E4M3)
             want = ref.mx_matmul_ref(x, w, E4M3, E4M3)
-            err, ok = gemm_ok(got, want, absq(x, E4M3, -1),
-                              absq(w, E4M3, 0), K)
-            record("mx_matmul", f"train lm_head {TOKENS}x{K}x{N} e4m3",
+            ok, worst, err = gemm_check(got, want, absq(x, E4M3, -1),
+                                        absq(w, E4M3, 0), K)
+            record("mx_matmul", f"train lm_head {TOKENS}x{K}x{N} e4m3 "
+                   f"(worst err/tol {worst:.3f})",
                    False, err, ok,
                    time_ms(lambda: ops.mx_matmul(x, w, E4M3, E4M3), 10,
                            flush),
@@ -652,28 +734,41 @@ def training_kernels(rnd, record, flush):
                    bound(2 * (TOKENS * K + K * N + TOKENS * N),
                          2 * TOKENS * N * K))
 
+    # Ragged sizes: 100 rows, 200 output columns, contractions 48 and 1000
+    # (not multiples of 32: the partial MX block is zero padded), and a raw
+    # gradient (e4m3_bf16act's dgrad reads dy in place; 70 columns are not
+    # 16-byte rows, so that dy goes through the pre-pass; 199 output
+    # columns take the epilogue's unpaired stores).
+    for Kc in (48, 1000):
+        for label, f1, f2 in (("e4m3", E4M3, E4M3), ("mixed", E5M2, E4M3),
+                              ("raw dy", None, E4M3)):
+            fa, fg = (f2, f1) if label != "e4m3" else (f1, f2)
+            gemm_case("dgrad", rnd(100, Kc, std=1e-2),
+                      rnd(200, Kc, std=1.0 / math.sqrt(Kc)), f1, f2,
+                      f"ragged dx 100x{Kc}->200 {label}",
+                      faults=label == "e4m3")
+            gemm_case("wgrad", rnd(Kc, 100), rnd(Kc, 200, std=1e-2), fa, fg,
+                      f"ragged dW T{Kc} 100x200 {label}",
+                      faults=label == "e4m3")
+    gemm_case("dgrad", rnd(100, 70, std=1e-2), rnd(199, 70), None, E4M3,
+              "ragged dx 100x70->199 raw dy")
+
     # The proxy's fp32 GEMMs (batch 2048, 512 -> 2048), all quantized.
     M, K, N = 2048, 512, 2048
     x = rnd(M, K, dtype=torch.float32)
     w = rnd(K, N, dtype=torch.float32, std=1.0 / math.sqrt(K))
     dy = rnd(M, N, dtype=torch.float32, std=1e-2)
-    for name, got, want, qa, qb, n in (
-            ("mx_matmul", ops.mx_matmul(x, w, E4M3, E4M3),
-             ref.mx_matmul_ref(x, w, E4M3, E4M3), absq(x, E4M3, -1),
-             absq(w, E4M3, 0), K),
-            ("mx_matmul_dgrad", ops.mx_matmul_dgrad(dy, w, E4M3, E4M3),
-             ref.mx_matmul_dgrad_ref(dy, w, E4M3, E4M3), absq(dy, E4M3, -1),
-             absq(w, E4M3, 1).T, N),
-            ("mx_matmul_wgrad", ops.mx_matmul_wgrad(x, dy, E4M3, E4M3),
-             ref.mx_matmul_wgrad_ref(x, dy, E4M3, E4M3),
-             absq(x, E4M3, 0).T, absq(dy, E4M3, 0), M)):
-        # fp32 results: the fp32 accumulation bound alone (plus 1 fp32 ulp)
-        tol = (want.abs() * 2.0 ** -23
-               + n * 2.0 ** -24 * (qa @ qb))
-        diff = (got - want).abs()
-        record(name, f"proxy fp32 {M}x{K}x{N} e4m3", False,
-               diff.max().item(), bool((diff <= tol).all()), None, None,
-               None, bound(4 * (M * K + K * N + M * N), 2 * M * N * K))
+    got = ops.mx_matmul(x, w, E4M3, E4M3)
+    want = ref.mx_matmul_ref(x, w, E4M3, E4M3)
+    # fp32 results: the fp32 accumulation bound alone (plus 1 fp32 ulp)
+    tol = want.abs() * 2.0 ** -23 + K * 2.0 ** -24 * (
+        absq(x, E4M3, -1) @ absq(w, E4M3, 0))
+    diff = (got - want).abs()
+    record("mx_matmul", f"proxy fp32 {M}x{K}x{N} e4m3", False,
+           diff.max().item(), bool((diff <= tol).all()), None, None, None,
+           bound(4 * (M * K + K * N + M * N), 2 * M * N * K))
+    gemm_case("dgrad", dy, w, E4M3, E4M3, f"proxy fp32 {M}x{N}->{K} e4m3")
+    gemm_case("wgrad", x, dy, E4M3, E4M3, f"proxy fp32 T{M} {K}x{N} e4m3")
 
     # Flash dgrad: olmo-paper training, B 8 x 8 heads, G 1, T 512, d 64.
     BH, T, d = 64, 512, 64
@@ -797,9 +892,13 @@ def phase_train(params, cfg):
                  if r.device_type == torch.autograd.DeviceType.CUDA]
         top = [(k[:60], ms, n) for k, ms, n in
                sorted(rows_, key=lambda t: -t[1])[:10]]
+        # Families by kernel name: the forward GEMM (mx_gemm_*), the
+        # backward GEMMs' pre-pass (rows: dgrad, cols: wgrad) and product.
         families = {}
         for key, ms, _ in rows_:
-            fam = next((f for f in ("mx_gemm", "mx_attn_bwd", "mx_flash_fwd",
+            fam = next((f for f in ("mx_gemm", "mx_operand_rows",
+                                    "mx_operand_cols", "mx_tn_",
+                                    "mx_attn_bwd", "mx_flash_fwd",
                                     "mx_quantize") if f in key), "other")
             families[fam] = families.get(fam, 0.0) + ms
         rec = {"steps": steps, "batch": B, "seq": T, "losses": losses,

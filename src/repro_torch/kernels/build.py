@@ -29,6 +29,9 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# After the source: the backward GEMMs find libcuda's tensor-map encoder
+# with dlopen (mx_gemm_sm90.cuh).
+LINK_FLAGS = ["-ldl"]
 SOURCES = ("mx_quant", "mx_matmul", "mx_matmul_bwd", "mx_attention",
            "mx_attention_bwd")
 
@@ -48,7 +51,7 @@ def _nvcc() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
@@ -70,7 +73,8 @@ def build(out_dir: Optional[Path] = None) -> Path:
     for name in todo:
         tmp = out_dir / f".lib{name}.{os.getpid()}.so"
         log = open(out_dir / f"{name}.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+               *LINK_FLAGS]
         procs.append((name, tmp, log, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT)))
     failed = []

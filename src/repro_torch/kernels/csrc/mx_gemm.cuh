@@ -1,9 +1,9 @@
-// MX GEMM core shared by the forward, dgrad and wgrad kernels:
+// MX GEMM core of the forward kernel (mx_matmul.cu) alone; the dgrad and
+// wgrad kernels run on mx_gemm_sm90.cuh, which the forward joins next:
 //   C (M, N) = Q(A) (M, Kc) @ Q(B) (Kc, N), blocks along the contraction Kc.
 //
-// Replaces: the tile bodies `_mx_mm_kernel` (src/repro/kernels/mx_matmul.py:
-//   40-58), `_mx_dgrad_kernel` and `_mx_wgrad_kernel`
-//   (src/repro/kernels/mx_matmul_bwd.py:47-70, :114-139).
+// Replaces: the tile body `_mx_mm_kernel` (src/repro/kernels/mx_matmul.py:
+//   40-58).
 // Bound: by the card's bytes at the serve path's small M; by operations at
 //   the training step's 4096 tokens (a 4096 x 512 x 2048 product does about
 //   370 operations per byte it must move, above the H100's ~295).
@@ -15,9 +15,7 @@
 //   with lanes along kc, coalesced) or contraction-strided (p[kc * ld + i]:
 //   the 32 x 64 tile is staged raw with coalesced reads, then a warp
 //   quantizes one column per step with lane = kc).  So the forward reads a
-//   (M, K) and b (K, N) as they lie, dgrad reads W (K, N) through its
-//   (K, N) layout with blocks along N and no transposed copy, and wgrad reads
-//   x (T, K) and dy (T, N) with blocks along T.  Dequantized MX values are
+//   (M, K) and b (K, N) as they lie.  Dequantized MX values are
 //   exact in bf16 (mx.py:119-124), and so are raw bf16 operands, so the
 //   product runs on the tensor cores through WMMA m16n16k16 bf16 fragments
 //   with fp32 accumulation; an fp32 operand must be quantized for this to

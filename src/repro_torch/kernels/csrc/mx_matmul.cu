@@ -7,7 +7,7 @@
 //   at M <= 512 rows and K, N <= 2048 is still far below the ~295 bf16
 //   operations per byte where the H100's tensor cores would bound it.  The
 //   training step's M = 4096 tokens is above that line (operations).
-// Design: the shared quantize-on-load core of mx_gemm.cuh with A read
+// Design: the quantize-on-load core of mx_gemm.cuh with A read
 //   contraction-contiguous (a warp quantizes a row, lanes along K) and B
 //   read contraction-strided (b's 32-blocks run down K: staged raw, then
 //   quantized one column per warp step).  Rows past M are neither loaded

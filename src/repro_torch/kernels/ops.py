@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,7 +30,7 @@ from . import build, ref
 __all__ = ["mx_quantize", "mx_matmul", "mx_matmul_dgrad", "mx_matmul_wgrad",
            "mx_flash_attention", "mx_flash_attention_bwd",
            "mx_attention_decode", "mx_attention_decode_paged", "LAUNCHES",
-           "reset_launches", "KERNELS"]
+           "reset_launches", "KERNELS", "bwd_gemm_plan"]
 
 #: Launch count of each kernel: one per launch, counted only where the
 #: kernel is launched (never for the plain versions).
@@ -71,11 +71,10 @@ _SIGNATURES = {
     "mx_matmul": ("mx_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _I, *_FMT,
                                 _I, *_FMT, _P]),
     "mx_matmul_splits": ("mx_matmul", [_I, _I, _I]),
-    "mx_matmul_dgrad": ("mx_matmul_bwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          *_FMT, _I, *_FMT, _P]),
-    "mx_matmul_wgrad": ("mx_matmul_bwd", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                          *_FMT, _I, *_FMT, _P]),
-    "mx_matmul_bwd_splits": ("mx_matmul_bwd", [_I, _I, _I]),
+    "mx_matmul_dgrad": ("mx_matmul_bwd", [_P] * 6 + [_I] * 6
+                        + [_I, *_FMT, _I, *_FMT, _P]),
+    "mx_matmul_wgrad": ("mx_matmul_bwd", [_P] * 6 + [_I] * 6
+                        + [_I, *_FMT, _I, *_FMT, _P]),
     "mx_decode_smem_bytes": ("mx_attention", [_I, _I, _I, _I]),
     "mx_flash_fwd": ("mx_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _I, *_FMT, _F,
@@ -90,6 +89,10 @@ _SIGNATURES = {
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 _KIND = {"causal": 0, "full": 1, "window": 2}
+
+#: Output tile (rows, columns) and k-tile depth of the backward GEMMs
+#: (``csrc/mx_gemm_sm90.cuh``), and the H100's SM count.
+BWD_TILE, BWD_DEPTH, _SMS = (128, 256), 64, 132
 
 
 def reset_launches() -> None:
@@ -229,6 +232,32 @@ def mx_matmul(a: torch.Tensor, b: torch.Tensor,
     return c.reshape(a.shape[:-1] + (N,))
 
 
+def bwd_gemm_plan(rows: int, cols: int, contraction: int) -> Tuple[int, int]:
+    """``(depth, splits)`` of a backward GEMM with a (rows, cols) output:
+    the scratch operands' contraction extent, zero padded to a multiple of
+    the k-tile depth, and the number of contraction splits.  Splits are
+    taken only when the output tiles are fewer than the card's SMs: the
+    nearest whole number of waves, at least 4 k-tiles each, none empty."""
+    depth = -(-contraction // BWD_DEPTH) * BWD_DEPTH
+    ktiles = depth // BWD_DEPTH
+    tiles = -(-rows // BWD_TILE[0]) * -(-cols // BWD_TILE[1])
+    splits = max(1, min((_SMS + tiles // 2) // tiles, ktiles // 4))
+    per = -(-ktiles // splits)
+    return depth, -(-ktiles // per)
+
+
+def _bwd_scratch(rows: int, depth: int, device) -> torch.Tensor:
+    """A quantized operand of a backward GEMM, contraction-major bf16."""
+    return torch.empty((rows, depth), dtype=torch.bfloat16, device=device)
+
+
+def _in_place(t: torch.Tensor, fmt) -> bool:
+    """A raw bf16 operand already contraction-major goes to the backward
+    product as it lies when TMA can read its rows (16-byte aligned)."""
+    return (fmt is None and t.dtype == torch.bfloat16
+            and t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0)
+
+
 def mx_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
                     fmt_g: Optional[ElementFormat],
                     fmt_w: Optional[ElementFormat], block: int = MX_BLOCK,
@@ -248,11 +277,17 @@ def mx_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
     w = w.contiguous()
     M = dy2.shape[0]
     dx = torch.empty((M, K), dtype=dy.dtype, device=dy.device)
-    work = _workspace(_fn("mx_matmul_bwd_splits")(M, K, N), M, K, dy.device)
+    if dx.numel() == 0 or N == 0:
+        return dx.zero_().reshape(dy.shape[:-1] + (K,))
+    depth, splits = bwd_gemm_plan(M, K, N)
+    dyq = None if _in_place(dy2, fmt_g) else _bwd_scratch(M, depth,
+                                                          dy.device)
+    wq = None if _in_place(w, fmt_w) else _bwd_scratch(K, depth, dy.device)
+    work = _workspace(splits, M, K, dy.device)
     _launch("mx_matmul_dgrad", "mx_matmul_dgrad", dy2.data_ptr(),
-            w.data_ptr(), dx.data_ptr(), _ptr(work), M, N, K, is_fp32,
-            int(fmt_g is not None), *_fmt_args(fmt_g),
-            int(fmt_w is not None), *_fmt_args(fmt_w))
+            w.data_ptr(), dx.data_ptr(), _ptr(work), _ptr(dyq), _ptr(wq), M,
+            N, K, depth, splits, is_fp32, int(fmt_g is not None),
+            *_fmt_args(fmt_g), int(fmt_w is not None), *_fmt_args(fmt_w))
     return dx.reshape(dy.shape[:-1] + (K,))
 
 
@@ -274,9 +309,15 @@ def mx_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
     N = dy.shape[1]
     x, dy = x.contiguous(), dy.contiguous()
     dw = torch.empty((K, N), dtype=x.dtype, device=x.device)
-    work = _workspace(_fn("mx_matmul_bwd_splits")(K, N, T), K, N, x.device)
+    if dw.numel() == 0 or T == 0:
+        return dw.zero_()
+    depth, splits = bwd_gemm_plan(K, N, T)
+    xq = _bwd_scratch(K, depth, x.device)
+    dyq = _bwd_scratch(N, depth, x.device)
+    work = _workspace(splits, K, N, x.device)
     _launch("mx_matmul_wgrad", "mx_matmul_wgrad", x.data_ptr(),
-            dy.data_ptr(), dw.data_ptr(), _ptr(work), T, K, N, is_fp32,
+            dy.data_ptr(), dw.data_ptr(), _ptr(work), xq.data_ptr(),
+            dyq.data_ptr(), T, K, N, depth, splits, is_fp32,
             int(fmt_a is not None), *_fmt_args(fmt_a),
             int(fmt_g is not None), *_fmt_args(fmt_g))
     return dw

@@ -108,8 +108,8 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
 
 @pytest.mark.parametrize("name", ["mx_quant.cuh", "mx_quant.cu",
                                   "mx_matmul.cu", "mx_attention.cu",
-                                  "mx_gemm.cuh", "mx_matmul_bwd.cu",
-                                  "mx_attention_bwd.cu"])
+                                  "mx_gemm.cuh", "mx_gemm_sm90.cuh",
+                                  "mx_matmul_bwd.cu", "mx_attention_bwd.cu"])
 def test_cuda_sources_carry_their_note(name):
     text = (PORT / "kernels" / "csrc" / name).read_text()
     head = text[:text.index("#include")]
