@@ -15,7 +15,19 @@ Phases, each of which raises on failure:
                 buckets 64 and 512), timed by the profiler's device time
                 against the plain version and, where one exists, a PyTorch
                 call.  Attention outputs are held per element; planted
-                faults in the plain attention must fail that check.
+                faults in the plain attention must fail that check.  The
+                forward GEMM on both of its paths (small-M kernel, and the
+                quantize-once wgmma product) at every M of the main path,
+                each called twice for equal bits, and both paths timed
+                around the plan's switch.  MXFP6 and MXFP4 (E3M2, E2M3,
+                E2M1) under each scale rule: quantize bitwise, the
+                forward GEMM on both paths, and the cast without the
+                min_normal_exp clamp planted, which the checks reject.
+     scale-modes — all eight kernels under "bump" and "adaptive" against
+                their plain versions, on inputs whose blocks make the rules
+                matter; adaptive choices that differ must be near ties
+                (counted); the floor rule under "bump" and "always e + 1"
+                under "adaptive" planted, which the checks reject.
   3. serve    — ``ServeEngine`` on olmo-paper (full width, n = 8) with seeded
                 random weights: 8 requests under ``mxfp8_e4m3`` and under
                 ``e4m3_bf16act``; every request must finish and every
@@ -32,8 +44,11 @@ Phases, each of which raises on failure:
                 T 512, full width): every layernorm gradient non-zero and
                 within its limit.
   7. recovery — a batch poisoned at step 12 makes the Trainer roll back to
-                the step-10 checkpoint and switch to ``bf16_activations``;
-                the quantize kernel must then launch no more.
+                the step-10 checkpoint, twice: with ``bf16_activations`` the
+                quantize kernel must then launch no more; with
+                ``bump_exponent`` (the paper's Fig. 7 scale bump) the run
+                continues under the "bump" rule, its kernels still
+                launching.
   8. proxy    — the paper's student-teacher proxy at full width trains 20
                 steps under ``mxfp8_e4m3``.
   9. paged-parity — page pools filled by chunked prefill for 4 prompts:
@@ -120,25 +135,29 @@ def time_parts_ms(fn, iters: int, flush):
     64 MiB, which no timed function launches), so neither the flush nor
     host launch overhead is counted.  The flush is taken out by name, not
     by subtracting a second window's time: the flush's time varies by
-    more than a call of a few µs takes.  Raises if the profiler sees no
-    device time for ``fn``."""
+    more than a call of a few µs takes.  A window pair in which the
+    profiler saw no flush or no device time is taken again, up to three
+    times; then it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(), fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flush()
-        torch.cuda.synchronize()
-    flush_keys = frozenset(
-        row.key for row in prof.key_averages()
-        if row.device_type == torch.autograd.DeviceType.CUDA)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    for _ in range(3):   # a profiler window that saw nothing is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             flush()
-            fn()
-        torch.cuda.synchronize()
-    us = _kernel_us(prof, flush_keys)
-    if us <= 0:
+            torch.cuda.synchronize()
+        flush_keys = frozenset(
+            row.key for row in prof.key_averages()
+            if row.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        us = _kernel_us(prof, flush_keys)
+        if flush_keys and us > 0:
+            break
+    else:
         raise RuntimeError(f"the profiler saw no device time for the call "
                            f"(flush kernels {sorted(flush_keys)})")
     parts = {row.key: getattr(row, "device_time_total",
@@ -307,30 +326,24 @@ def phase_kernels():
                time_ms(lambda: ref.mx_quantize_ref(x, E4M3), 10, flush),
                None, bound(8 * n, 0))
 
-    # 2. GEMM: decode (M = max_batch = 4) and prefill (M = bucket 512).
+    # 2. forward GEMM on both paths (ops.fwd_gemm_plan): the small-M kernel
+    # at decode (M = max_batch 4; the paged engine's 6 rows), the
+    # quantize-once wgmma path at the chunked prefill's 64 rows and the
+    # prefill bucket's 512 (the training shapes are in training_kernels),
+    # and both paths timed at the rows where the plan switches.
     gemm_cases = (("decode lm_head 4x512x32000 e4m3/e4m3", 4, 512, 32000, E4M3, E4M3, True),
                   ("decode w_down 4x2048x512 e4m3/e4m3", 4, 2048, 512, E4M3, E4M3, False),
                   ("decode wq 4x512x512 e4m3/e4m3", 4, 512, 512, E4M3, E4M3, False),
+                  ("decode w_up 4x512x2048 e4m3/e4m3", 4, 512, 2048, E4M3, E4M3, False),
+                  ("paged decode lm_head 6x512x32000 e4m3/e4m3", 6, 512, 32000, E4M3, E4M3, False),
+                  ("chunk lm_head 64x512x32000 e4m3/e4m3", 64, 512, 32000, E4M3, E4M3, False),
                   ("prefill w_up 512x512x2048 e4m3/e4m3", 512, 512, 2048, E4M3, E4M3, False),
                   ("decode lm_head 4x512x32000 bf16/e4m3", 4, 512, 32000, None, E4M3, False),
                   ("prefill w_up 512x512x2048 bf16/e4m3", 512, 512, 2048, None, E4M3, False))
     for case, M, K, N, fa, fb, primary in gemm_cases:
-        a = rnd(M, K)
-        b = rnd(K, N, std=1.0 / math.sqrt(K))
-        c = ops.mx_matmul(a, b, fa, fb)
-        cr = ref.mx_matmul_ref(a, b, fa, fb)
-        # Tolerance: one bf16 ulp of the result plus the fp32 accumulation
-        # bound K * 2^-24 * sum_k |Q(a)||Q(b)| (the summation orders differ).
-        qa = ref.mx_quantize_ref(a, fa).float().abs()
-        qb = ref.mx_quantize_ref(b, fb, axis=0).float().abs()
-        tol = ulp_bf16(cr.float()) + K * 2.0 ** -24 * (qa @ qb)
-        diff = (c.float() - cr.float()).abs()
-        record("mx_matmul", case, primary, diff.max().item(),
-               bool((diff <= tol).all()),
-               time_ms(lambda: ops.mx_matmul(a, b, fa, fb), 50, flush),
-               time_ms(lambda: ref.mx_matmul_ref(a, b, fa, fb), 10, flush),
-               time_ms(lambda: torch.matmul(a, b), 50, flush),
-               bound(2 * (M * K + K * N + M * N), 2 * M * N * K))
+        fwd_gemm_case(record, flush, case, rnd(M, K),
+                      rnd(K, N, std=1.0 / math.sqrt(K)), fa, fb, primary)
+    fwd_paths(rnd, flush)
 
     # 3. flash forward: olmo-paper prefill, BH = 8 heads, G = 1, d = 64.
     for T, fmt, primary in ((512, E4M3, True), (64, E4M3, False),
@@ -456,6 +469,58 @@ def planted_table(pt, fault):
     return torch.cat([flat[1:], flat.new_full((1,), -1)]).reshape(pt.shape)
 
 
+def fwd_gemm_case(record, flush, case, a, b, fa, fb, primary=False):
+    """The forward GEMM kernel against its plain version (gemm_check) and
+    against itself on a second call, timed beside the plain version and
+    the unquantized torch.matmul, with its path and pre-pass share."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    def fn():
+        return ops.mx_matmul(a, b, fa, fb)
+    got, want = fn(), ref.mx_matmul_ref(a, b, fa, fb)
+    M, K = a.shape
+    N = b.shape[1]
+    ok, worst, err = gemm_check(got, want,
+                                ref.mx_quantize_ref(a, fa).float().abs(),
+                                ref.mx_quantize_ref(b, fb, axis=0).float()
+                                .abs(), K)
+    replay = torch.equal(got, fn())
+    small, _, splits = ops.fwd_gemm_plan(M, N, K)
+    ms, parts = time_parts_ms(fn, 20, flush)
+    pre = sum(v for k_, v in parts.items() if "mx_operand" in k_)
+    size = a.element_size()
+    record("mx_matmul", f"{case} ({'small-M' if small else 'wgmma'} path, "
+           f"{splits} splits; worst err/tol {worst:.3f}, replay equal "
+           f"{replay})", primary, err, ok and replay, ms,
+           time_ms(lambda: ref.mx_matmul_ref(a, b, fa, fb), 3, flush),
+           time_ms(lambda: torch.matmul(a, b), 20, flush),
+           bound(size * (M * K + K * N + M * N), 2 * M * N * K),
+           prepass_ms=pre, prepass_share=pre / ms)
+
+
+def fwd_paths(rnd, flush):
+    """Both forward paths timed at 4, 6 and 8 rows (the small-M kernel's
+    limit, ops.FWD_SMALL_M), on the serve path's weights: the numbers
+    behind the threshold."""
+    from repro_torch.core import E4M3
+    from repro_torch.kernels import ops
+    keep = ops.FWD_SMALL_M
+    for M in (4, 6, 8):
+        for K, N in ((512, 32000), (2048, 512), (512, 2048)):
+            a, b = rnd(M, K), rnd(K, N, std=1.0 / math.sqrt(K))
+            ms = {}
+            try:
+                for path, limit in (("small-M", keep), ("wgmma", 0)):
+                    ops.FWD_SMALL_M = limit
+                    ms[path] = time_ms(lambda: ops.mx_matmul(a, b, E4M3,
+                                                             E4M3), 20, flush)
+            finally:
+                ops.FWD_SMALL_M = keep
+            print(f"[kernels] forward paths at {M}x{K}x{N} e4m3: "
+                  + json.dumps(ms), flush=True)
+
+
 def paged_kernels(record, flush, dev: str = "cuda"):
     """The paged decode kernel at P 16 (view 512) and P 8 (view 256), in
     E4M3 and bf16 modes: bitwise equal to the slab decode kernel on the
@@ -545,7 +610,8 @@ FLASH_BWD_FAULTS = ("p from unquantized scores",
                     "delta rounded to bf16")
 
 
-def flash_bwd_dense(q, k, v, dout, out, lse, fmt, fault=None):
+def flash_bwd_dense(q, k, v, dout, out, lse, fmt, fault=None,
+                    scale_mode="floor"):
     """Untiled causal flash dgrad in fp64 with one planted ``fault`` (None:
     none).  Returns ((dq, dk, dv), (bound_q, bound_k, bound_v)) in fp64;
     the bounds are those of FLASH_BWD_EPS."""
@@ -554,7 +620,8 @@ def flash_bwd_dense(q, k, v, dout, out, lse, fmt, fault=None):
     f64 = torch.float64
 
     def Q(x, axis):
-        return quantize_mx(x.float(), fmt, axis=axis).to(f64)
+        return quantize_mx(x.float(), fmt, axis=axis,
+                           scale_mode=scale_mode).to(f64)
     T, d = q.shape[2], q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     qq, kk = Q(q, -1), Q(k, -1)
@@ -633,6 +700,352 @@ def planted_gemm(kind, a, b, fa, fb, fault=None):
     aq = a if fault == "x left unquantized" else quantize_mx(a, fa, axis=0)
     bq = quantize_mx(b, fb, axis=0)
     return torch.matmul(aq.float().T, bq.float()).to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The scale rules ("floor", "bump", "adaptive") and the low-bit formats.
+# ---------------------------------------------------------------------------
+# Under "floor" and "bump" a kernel's quantization equals its plain
+# version's bit for bit.  Under "adaptive" both pick the exponent e or
+# e + 1 of each 32-block by comparing two fp32 sums of 32 squared errors;
+# the kernels add them in a butterfly order and torch.sum in its own, so
+# the two choices can differ where the sums are within their rounding of
+# each other.  Such a block must hold the plain version's other candidate
+# bit for bit, and be a near tie: |err1 - err0| <= TIE_EPS (err0 + err1)
+# with the errors summed exactly (fp64); each fp32 sum of 32 non-negative
+# terms is within ~32 ulps of its exact value.
+TIE_EPS = 32 * 2.0 ** -24
+# Faults a kernel could plant in its scale rule or its cast, each held to
+# the mode it breaks: the floor rule run under "bump" or "adaptive", e + 1
+# taken for every block under "adaptive", and the cast without the
+# min_normal_exp clamp (the element's own exponent below the smallest
+# normal, so the subnormal grid is lost; E2M1's min_normal_exp is 0).  The
+# quantize check sees each bit for bit.  A GEMM check sees the floor rule,
+# which clamps the blocks whose max lies above max_normal * 2^e, but not
+# "always e + 1" in E4M3: e and e + 1 cast a block alike but for its
+# elements more than 2^14 below the max, whose products lie far below a
+# bf16 ulp of the outputs.
+SCALE_FAULTS = {"bump": ("the floor rule",),
+                "adaptive": ("always e + 1", "the floor rule")}
+CAST_FAULT = "no min_normal_exp clamp"
+
+
+def planted_quantize(x, fmt, axis, scale_mode, fault=None):
+    """quantize_mx along ``axis`` with one planted ``fault`` (None: none)."""
+    import torch
+    from repro_torch.core import quantize_mx
+    from repro_torch.core.formats import exp2_int, floor_log2
+    from repro_torch.core.mx import (block_reshape, block_unreshape,
+                                     shared_exponent)
+    if fault is None or fmt is None:
+        return quantize_mx(x, fmt, axis=axis, scale_mode=scale_mode)
+    if fault == "the floor rule":
+        return quantize_mx(x, fmt, axis=axis, scale_mode="floor")
+    xf = x.float()
+    xb, n = block_reshape(xf, axis, 32)
+    if fault == "always e + 1":
+        m = xb.abs().amax(-1, keepdim=True)
+        e = torch.where(m > 0, torch.clamp(
+            shared_exponent(xb, fmt, "floor") + 1, -126, 127), -126)
+    else:
+        e = shared_exponent(xb, fmt, scale_mode)
+    scale = exp2_int(e)
+    r = xb / scale
+    mag = r.abs()
+    ee = floor_log2(torch.where(mag > 0, mag, torch.ones_like(mag)))
+    if fault != CAST_FAULT:
+        ee = torch.clamp(ee, min=fmt.min_normal_exp)
+    quantum = exp2_int(ee - fmt.mbits)
+    q = torch.clamp(torch.round(r / quantum) * quantum, -fmt.max_normal,
+                    fmt.max_normal)
+    q = torch.where(mag > 0, q, torch.zeros_like(q))
+    q = torch.where(torch.isfinite(r), q, r)
+    y = block_unreshape(q * scale, axis, n)
+    return (xf + (y - xf)).to(x.dtype)
+
+
+def scale_choice_check(x, got, fmt, axis, scale_mode):
+    """(ok, n_off, n_blocks): ``got`` (a kernel's quantization of x along
+    ``axis``) against the plain version, block by block; ``n_off`` counts
+    the blocks that differ, which for a correct kernel are adaptive near
+    ties (see TIE_EPS)."""
+    import torch
+    from repro_torch.core import quantize_mx
+    from repro_torch.core.formats import exp2_int, floor_log2, quantize_elem
+    from repro_torch.core.mx import block_reshape
+
+    def same(a, b):
+        return ((a == b) | (a.isnan() & b.isnan())).all(-1)
+    want = quantize_mx(x, fmt, axis=axis, scale_mode=scale_mode)
+    gb = block_reshape(got.float(), axis, 32)[0]
+    wb = block_reshape(want.float(), axis, 32)[0]
+    eq = same(gb, wb)
+    if scale_mode != "adaptive" or bool(eq.all()):
+        return bool(eq.all()), int((~eq).sum()), eq.numel()
+    xb = block_reshape(x.float(), axis, 32)[0]
+    m = xb.abs().amax(-1, keepdim=True)
+    e = floor_log2(torch.where(m > 0, m, torch.ones_like(m))) - fmt.e_max
+    cands, errs = [], []
+    for c in (e, e + 1):
+        sc = exp2_int(c)
+        y = quantize_elem(xb / sc, fmt) * sc
+        errs.append(((y.double() - xb.double()) ** 2).sum(-1))
+        cands.append((xb + (y - xb)).to(x.dtype).float())
+    other = torch.where(same(wb, cands[0])[..., None], cands[1], cands[0])
+    tie = (errs[1] - errs[0]).abs() <= TIE_EPS * (errs[0] + errs[1])
+    ok = bool((eq | (same(gb, other) & tie)).all())
+    return ok, int((~eq).sum()), eq.numel()
+
+
+def mode_input(shape, axis, fmt, g, std=1.0, dtype=None, edges=False):
+    """Normal values whose 32-blocks along ``axis`` make the scale rules
+    matter.  Of every four blocks, the second has its max above
+    max_normal * 2^e, from just above to just below 2^(e + e_max + 1)
+    (where "bump" takes e + 1, and the max then rounds to another value
+    than the floor rule's clamp once it lies past the midpoint of the
+    last bin); the third is tight, all
+    its values near 1.96 * 2^k, where the floor scale clamps them all and
+    "adaptive" takes e + 1; the fourth spans the format's normal and
+    subnormal range below its max, so that e + 1 puts more of it on the
+    coarser subnormal grid and "adaptive" keeps e.  With ``edges``, the first rows hold an all-zero block, a NaN, an
+    infinity, and blocks whose floor exponent sits at the lower and upper
+    clip."""
+    import torch
+    dtype = dtype or torch.bfloat16
+    x = torch.movedim(torch.randn(*shape, generator=g) * std, axis, -1)
+    n = x.shape[-1] // 32 * 32
+    xb = x[..., :n].unflatten(-1, (-1, 32))
+    k = torch.ceil(torch.log2(xb.abs().amax(-1) + 1e-30))
+    sign = torch.where(xb[..., 0] < 0, -1.0, 1.0)
+    top = fmt.max_normal / 2.0 ** fmt.e_max      # max_normal's mantissa
+    frac = 2.0 ** -7 + (2 - top - 2.0 ** -6) * torch.rand(k.shape,
+                                                           generator=g)
+    xb[..., 1::4, 0] = ((top + frac) * 2.0 ** k * sign)[..., 1::4]
+    tight = (1.96 + 0.02 * torch.rand(xb[..., 2::4, :].shape, generator=g)
+             ) * 2.0 ** k[..., 2::4, None]
+    xb[..., 2::4, :] = tight * torch.where(xb[..., 2::4, :] < 0, -1.0, 1.0)
+    span = fmt.e_max - fmt.min_normal_exp + fmt.mbits + 2
+    wide = 2.0 ** (k[..., 3::4, None] - span * torch.rand(
+        xb[..., 3::4, :].shape, generator=g))
+    xb[..., 3::4, :] = wide * torch.where(xb[..., 3::4, :] < 0, -1.0, 1.0)
+    if edges:
+        flat = xb.reshape(-1, xb.shape[-2], 32)
+        flat[0, 0] = 0.0
+        flat[0, 3, 5] = float("nan")
+        flat[0, 4, 7] = float("inf")
+        flat[0, 5] = flat[0, 5] * 2.0 ** -122     # exponent clipped at -126
+        flat[0, 6] = 1.9 * 2.0 ** 126             # near the top of fp32
+        xb = flat.reshape(xb.shape)
+    x[..., :n] = xb.flatten(-2)
+    return torch.movedim(x, -1, axis).to(dtype)
+
+
+def quantize_mode_case(tag, x, fmt, mode, fault=None):
+    """The quantize kernel on x under ``mode`` against its plain version
+    (scale_choice_check), and ``fault`` (or the mode's own fault) planted
+    in the plain version, which the check must reject."""
+    from repro_torch.kernels import ops
+    got = ops.mx_quantize(x, fmt, scale_mode=mode)
+    ok, ties, n = scale_choice_check(x, got, fmt, -1, mode)
+    faults = list(SCALE_FAULTS.get(mode, ())) + ([fault] if fault else [])
+    for f in faults:
+        accepted, off, _ = scale_choice_check(
+            x, planted_quantize(x, fmt, -1, mode, f), fmt, -1, mode)
+        print(f"[controls] quantize {fmt.name} {mode}: {f!r} {off} blocks "
+              f"off ({'ACCEPTED' if accepted else 'rejected'})", flush=True)
+        if accepted:
+            raise AssertionError(f"quantize {fmt.name} {mode}: the check "
+                                 f"accepts the planted fault {f!r}")
+    print(f"[{tag}] {'ok  ' if ok else 'FAIL'} quantize {tuple(x.shape)} "
+          f"{x.dtype} {fmt.name} {mode}: {n} blocks, {ties} adaptive near "
+          f"ties", flush=True)
+    if not ok:
+        raise AssertionError(f"quantize {fmt.name} {mode} disagrees with its "
+                             f"plain version")
+    return ties
+
+
+def kernel_operands(ops_pairs, mode):
+    """Each (x, fmt, axis) quantized by the quantize kernel, whose choices
+    every kernel shares (the same cast and butterfly sums), checked against
+    the plain version; returns the operands and their near-tie count."""
+    from repro_torch.kernels import ops
+    out, ties = [], 0
+    for x, fmt, axis in ops_pairs:
+        q = ops.mx_quantize(x, fmt, axis=axis, scale_mode=mode)
+        if fmt is not None:
+            ok, n, _ = scale_choice_check(x, q, fmt, axis, mode)
+            if not ok:
+                raise AssertionError(f"quantize {fmt.name} {mode} along "
+                                     f"{axis} disagrees with its plain "
+                                     "version")
+            ties += n
+        out.append(q)
+    return out, ties
+
+
+def gemm_mode_case(tag, kind, a, b, fa, fb, mode, faults=()):
+    """The forward GEMM (a (M, K), b (K, N)), dgrad (a = dy, b = w) or
+    wgrad (a = x, b = dy) kernel under ``mode`` against its plain version
+    with gemm_check, a second call for equal bits, and ``faults`` planted in
+    the plain version's quantizers, which gemm_check must reject.  Where
+    the operands hold adaptive near ties, the plain product takes the
+    kernels' (checked) choices."""
+    import torch
+    from repro_torch.kernels import ops
+    axes = {"fwd": (-1, 0), "dgrad": (-1, 1), "wgrad": (0, 0)}[kind]
+    fn = {"fwd": ops.mx_matmul, "dgrad": ops.mx_matmul_dgrad,
+          "wgrad": ops.mx_matmul_wgrad}[kind]
+
+    def product(qa, qb):
+        qa, qb = qa.float(), qb.float()
+        out = {"fwd": lambda: qa @ qb, "dgrad": lambda: qa @ qb.T,
+               "wgrad": lambda: qa.T @ qb}[kind]()
+        return out.to(a.dtype)
+
+    def planted(fault):
+        return product(planted_quantize(a, fa, axes[0], mode, fault),
+                       planted_quantize(b, fb, axes[1], mode, fault))
+    got = fn(a, b, fa, fb, scale_mode=mode)
+    (qa, qb), ties = kernel_operands(((a, fa, axes[0]), (b, fb, axes[1])),
+                                     mode)
+    want = planted(None) if ties == 0 else product(qa, qb)
+    ma, mb = qa.float().abs(), qb.float().abs()
+    ma, mb = {"fwd": (ma, mb), "dgrad": (ma, mb.T), "wgrad": (ma.T, mb)}[kind]
+    n = a.shape[0] if kind == "wgrad" else a.shape[-1]
+    ok, worst, err = gemm_check(got, want, ma, mb, n)
+    replay = torch.equal(got, fn(a, b, fa, fb, scale_mode=mode))
+    if faults:
+        check_controls(f"{kind} {tuple(a.shape)}x{tuple(b.shape)} {mode}",
+                       lambda y: gemm_check(y, want, ma, mb, n), planted,
+                       faults)
+    names = "/".join(f.name if f else "bf16" for f in (fa, fb))
+    print(f"[{tag}] {'ok  ' if ok and replay else 'FAIL'} {kind} "
+          f"{tuple(a.shape)}x{tuple(b.shape)} {names} {mode}: worst err/tol "
+          f"{worst:.3f}, replay equal {replay}, {ties} adaptive near ties",
+          flush=True)
+    if not (ok and replay):
+        raise AssertionError(f"{kind} {names} {mode} disagrees with its "
+                             f"plain version (worst err/tol {worst})")
+    return ties
+
+
+def phase_scale_modes():
+    """All eight kernels under "bump" and "adaptive" against their plain
+    versions at the shapes of [kernels], on inputs whose blocks make the
+    rules matter (mode_input): quantize bitwise (adaptive: near ties
+    only), the GEMMs within gemm_check, attention within attn_check, the
+    flash dgrad within its term bound, paged decode bitwise to the slab
+    decode kernel.  The mode's planted faults (SCALE_FAULTS) must fail the
+    quantize check, the floor rule also the forward GEMM's."""
+    import torch
+    from repro_torch.core import E4M3, AttnSpec
+    from repro_torch.kernels import ops, ref
+
+    dev, fmt, spec = "cuda", E4M3, AttnSpec()
+    g = torch.Generator().manual_seed(SEED + 16)
+
+    def mi(shape, axis, std=1.0, dtype=torch.bfloat16, edges=False):
+        return mode_input(shape, axis, fmt, g, std, dtype, edges).to(dev)
+    ties = {}
+    for mode in ("bump", "adaptive"):
+        fault = ("the floor rule",)
+        t = quantize_mode_case("scale-modes", mi((1, 512, 512), -1,
+                                                 dtype=torch.float32,
+                                                 edges=True), fmt, mode)
+        x, w = mi((TOKENS, 512), -1), mi((512, 32000), 0, 1 / math.sqrt(512))
+        t += gemm_mode_case("scale-modes", "fwd", x[:4], w, fmt, fmt, mode,
+                            fault)
+        t += gemm_mode_case("scale-modes", "fwd", x, w, fmt, fmt, mode, fault)
+        dy = mi((TOKENS, 32000), -1, 1e-2)
+        t += gemm_mode_case("scale-modes", "dgrad", dy,
+                            mi((512, 32000), 1, 1 / math.sqrt(512)), fmt,
+                            fmt, mode)
+        t += gemm_mode_case("scale-modes", "wgrad", mi((TOKENS, 512), 0),
+                            mi((TOKENS, 32000), 0, 1e-2), fmt, fmt, mode)
+        del dy
+        q, k, v = mi((8, 1, 512, 64), -1), mi((8, 512, 64), -1), mi(
+            (8, 512, 64), -2)
+        o, lse = ops.mx_flash_attention(q, k, v, fmt, spec, scale_mode=mode)
+        orf, lser = ref.mx_flash_attention_ref(q, k, v, fmt, spec,
+                                               scale_mode=mode)
+        ok, worst = attn_check(o, orf, attn_floor(v, 512))
+        ok = ok and (lse - lser).abs().max().item() <= 1e-4
+        print(f"[scale-modes] {'ok  ' if ok else 'FAIL'} flash bucket 512 "
+              f"{mode}: worst err/tol {worst:.3f}", flush=True)
+        if not ok:
+            raise AssertionError(f"flash forward {mode} disagrees")
+        BH, T = 64, 512
+        q, k, v = mi((BH, 1, T, 64), -1), mi((BH, T, 64), -1), mi(
+            (BH, T, 64), -2)
+        dout = mi((BH, 1, T, 64), -1, 1e-2)
+        out, lse = ops.mx_flash_attention(q, k, v, fmt, spec,
+                                          scale_mode=mode)
+        args = (q, k, v, dout, out, lse, fmt, spec)
+        got = ops.mx_flash_attention_bwd(*args, scale_mode=mode,
+                                         out_dtype=torch.float32)
+        want = ref.mx_flash_attention_bwd_ref(*args, scale_mode=mode,
+                                              out_dtype=torch.float32)
+        _, bounds = flash_bwd_dense(q, k, v, dout, out, lse, fmt,
+                                    scale_mode=mode)
+        ok, worst = flash_bwd_check(got, want, bounds)
+        print(f"[scale-modes] {'ok  ' if ok else 'FAIL'} flash dgrad BH{BH} "
+              f"T{T} {mode}: worst err/tol {worst:.3f}", flush=True)
+        if not ok:
+            raise AssertionError(f"flash dgrad {mode} disagrees")
+        B, H, S = 4, 8, 512
+        qd = mi((B * H, 1, 64), -1)
+        kc, vc = mi((B, S, H, 64), -1), mi((B, S, H, 64), 1)
+        pos = torch.tensor([100, 257, 400, 511], device=dev)
+        valid = torch.arange(S, device=dev)[None] <= pos[:, None]
+        o = ops.mx_attention_decode(qd, kc, vc, valid, fmt, scale_mode=mode)
+        orf = ref.mx_attention_decode_ref(qd, kc, vc, valid, fmt,
+                                          scale_mode=mode)
+        ok, worst = attn_check(o, orf, attn_floor(vc, S))
+        qp, kp, vp, pt, validp, _ = paged_case(16, dev)
+        op = ops.mx_attention_decode_paged(qp, kp, vp, pt, validp, fmt,
+                                           scale_mode=mode)
+        o7 = ops.mx_attention_decode(
+            qp, ref.gather_pages(kp, pt), ref.gather_pages(vp, pt),
+            torch.repeat_interleave(validp, kp.shape[2], dim=0), fmt,
+            scale_mode=mode)
+        same7 = torch.equal(op, o7)
+        print(f"[scale-modes] {'ok  ' if ok and same7 else 'FAIL'} decode "
+              f"B4 H8 S512 {mode}: worst err/tol {worst:.3f}; paged decode "
+              f"P16 bitwise to the slab kernel {same7}", flush=True)
+        if not (ok and same7):
+            raise AssertionError(f"decode {mode} disagrees")
+        ties[mode] = t
+    return ties
+
+
+def lowbit_kernels():
+    """[kernels] in MXFP6 (E3M2, E2M3) and MXFP4 (E2M1) under each scale
+    rule: quantize bitwise to its plain version (adaptive: near ties
+    only), the forward GEMM on both paths (decode and training lm_head)
+    within gemm_check; the cast without the min_normal_exp clamp planted in
+    the plain versions must fail both checks."""
+    import torch
+    from repro_torch.core import E2M1, E2M3, E3M2
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    out = {}
+    for fmt in (E3M2, E2M3, E2M1):
+        for mode in ("floor", "bump", "adaptive"):
+            fault = CAST_FAULT if mode == "floor" else None
+            t = quantize_mode_case("kernels", mode_input(
+                (1, 512, 512), -1, fmt, g, dtype=torch.float32,
+                edges=True).cuda(), fmt, mode, fault)
+            x = mode_input((TOKENS, 512), -1, fmt, g).cuda()
+            w = mode_input((512, 32000), 0, fmt, g,
+                           1 / math.sqrt(512)).cuda()
+            faults = (CAST_FAULT,) if fault else ()
+            t += gemm_mode_case("kernels", "fwd", x[:4], w, fmt, fmt, mode,
+                                faults)
+            t += gemm_mode_case("kernels", "fwd", x, w, fmt, fmt, mode,
+                                faults)
+            out[f"{fmt.name} {mode}"] = t
+    return out
 
 
 def training_kernels(rnd, record, flush):
@@ -718,21 +1131,13 @@ def training_kernels(rnd, record, flush):
             gemm_case("wgrad", x, dy, fa, fg,
                       f"{wname} dW T{TOKENS} {K}x{N} {label}", primary,
                       timed, timed)
+        fwd_gemm_case(record, flush,
+                      f"train {wname} {TOKENS}x{K}x{N} e4m3/e4m3", x, w,
+                      E4M3, E4M3)
         if wname == "lm_head":
-            got = ops.mx_matmul(x, w, E4M3, E4M3)
-            want = ref.mx_matmul_ref(x, w, E4M3, E4M3)
-            ok, worst, err = gemm_check(got, want, absq(x, E4M3, -1),
-                                        absq(w, E4M3, 0), K)
-            record("mx_matmul", f"train lm_head {TOKENS}x{K}x{N} e4m3 "
-                   f"(worst err/tol {worst:.3f})",
-                   False, err, ok,
-                   time_ms(lambda: ops.mx_matmul(x, w, E4M3, E4M3), 10,
-                           flush),
-                   time_ms(lambda: ref.mx_matmul_ref(x, w, E4M3, E4M3), 3,
-                           flush),
-                   time_ms(lambda: torch.matmul(x, w), 10, flush),
-                   bound(2 * (TOKENS * K + K * N + TOKENS * N),
-                         2 * TOKENS * N * K))
+            fwd_gemm_case(record, flush,
+                          f"train {wname} {TOKENS}x{K}x{N} bf16/e4m3", x, w,
+                          None, E4M3)
 
     # Ragged sizes: 100 rows, 200 output columns, contractions 48 and 1000
     # (not multiples of 32: the partial MX block is zero padded), and a raw
@@ -758,15 +1163,8 @@ def training_kernels(rnd, record, flush):
     x = rnd(M, K, dtype=torch.float32)
     w = rnd(K, N, dtype=torch.float32, std=1.0 / math.sqrt(K))
     dy = rnd(M, N, dtype=torch.float32, std=1e-2)
-    got = ops.mx_matmul(x, w, E4M3, E4M3)
-    want = ref.mx_matmul_ref(x, w, E4M3, E4M3)
-    # fp32 results: the fp32 accumulation bound alone (plus 1 fp32 ulp)
-    tol = want.abs() * 2.0 ** -23 + K * 2.0 ** -24 * (
-        absq(x, E4M3, -1) @ absq(w, E4M3, 0))
-    diff = (got - want).abs()
-    record("mx_matmul", f"proxy fp32 {M}x{K}x{N} e4m3", False,
-           diff.max().item(), bool((diff <= tol).all()), None, None, None,
-           bound(4 * (M * K + K * N + M * N), 2 * M * N * K))
+    fwd_gemm_case(record, flush, f"proxy fp32 {M}x{K}x{N} e4m3/e4m3", x, w,
+                  E4M3, E4M3)
     gemm_case("dgrad", dy, w, E4M3, E4M3, f"proxy fp32 {M}x{N}->{K} e4m3")
     gemm_case("wgrad", x, dy, E4M3, E4M3, f"proxy fp32 T{M} {K}x{N} e4m3")
 
@@ -840,6 +1238,21 @@ def _train_kernels(qcfg_name: str):
             "mx_flash_attention_bwd"}
 
 
+# A training step's kernel time by family, from the kernels' names: the
+# forward GEMM's kernels live in the namespace fwd::, the dgrad's and
+# wgrad's in bwd:: (csrc/mx_gemm_sm90.cuh); the pre-pass "rows" serves x
+# (forward) and dy and W (dgrad), "cols" W (forward) and x and dy (wgrad).
+TRAIN_FAMILIES = (("forward GEMM small-M", "mx_fwd_small_m"),
+                  ("forward GEMM pre-pass", "fwd::mx_operand"),
+                  ("forward GEMM product", "fwd::mx_tn_"),
+                  ("dgrad/wgrad pre-pass rows", "bwd::mx_operand_rows"),
+                  ("dgrad/wgrad pre-pass cols", "bwd::mx_operand_cols"),
+                  ("dgrad/wgrad product", "bwd::mx_tn_"),
+                  ("flash dgrad", "mx_attn_bwd"),
+                  ("flash forward", "mx_flash_fwd"),
+                  ("quantize", "mx_quantize"))
+
+
 def phase_train(params, cfg):
     """olmo-paper full trains 20 steps at batch 8 x 512 under mxfp8_e4m3
     and e4m3_bf16act: losses finite and falling, every kernel of the path
@@ -892,14 +1305,10 @@ def phase_train(params, cfg):
                  if r.device_type == torch.autograd.DeviceType.CUDA]
         top = [(k[:60], ms, n) for k, ms, n in
                sorted(rows_, key=lambda t: -t[1])[:10]]
-        # Families by kernel name: the forward GEMM (mx_gemm_*), the
-        # backward GEMMs' pre-pass (rows: dgrad, cols: wgrad) and product.
         families = {}
         for key, ms, _ in rows_:
-            fam = next((f for f in ("mx_gemm", "mx_operand_rows",
-                                    "mx_operand_cols", "mx_tn_",
-                                    "mx_attn_bwd", "mx_flash_fwd",
-                                    "mx_quantize") if f in key), "other")
+            fam = next((f for f, part in TRAIN_FAMILIES if part in key),
+                       "other")
             families[fam] = families.get(fam, 0.0) + ms
         rec = {"steps": steps, "batch": B, "seq": T, "losses": losses,
                "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
@@ -1000,8 +1409,12 @@ def phase_grad_parity(params, cfg):
 
 def phase_recovery(params, cfg):
     """The Trainer on the card with ckpt_every=5 and a batch poisoned at
-    step 12: it must roll back to step 10, switch to bf16_activations,
-    finish the 20 steps, and launch no quantize kernel afterwards."""
+    step 12, once per intervention: it must roll back to step 10, apply
+    the intervention, and finish the 20 steps with finite losses.  After
+    ``bf16_activations`` no quantize kernel launches; after
+    ``bump_exponent`` (the paper's Fig. 7 scale bump: scale_mode "bump")
+    the quantize, GEMM and attention kernels still launch, now under the
+    bump rule."""
     import shutil
     import torch
     from repro_torch.convert import lm_checkpoint_layout
@@ -1012,53 +1425,71 @@ def phase_recovery(params, cfg):
     from repro_torch.train import Trainer, TrainerConfig
 
     ckdir = ROOT / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(ckdir, ignore_errors=True)
-    armed = {"spike": True}
-
-    def batch_fn(step):
-        b = lm_batch(step, cfg.vocab, 2, 512, SEED, device="cuda")
-        poison = 1e6 if (step == 12 and armed.pop("spike", False)) else 1.0
-        b["poison"] = torch.tensor(poison, device="cuda")
-        return b
-
-    def loss_fn(p, b, q):
-        loss, m = lm_loss(p, {"tokens": b["tokens"], "labels": b["labels"]},
-                          cfg, q)
-        return loss * b["poison"], m
-
     start = preset("mxfp8_e4m3")
-    tr = Trainer(loss_fn, _fresh(params, "cuda"), start, batch_fn,
-                 tcfg=TrainerConfig(total_steps=20, ckpt_dir=str(ckdir),
-                                    ckpt_every=5, peak_lr=1e-3,
-                                    spike_factor=5.0,
-                                    auto_intervention="bf16_activations"),
-                 ckpt_layout=lm_checkpoint_layout(cfg, "cuda"))
-    ops.reset_launches()
-    tr.run(1)
-    before = ops.LAUNCHES["mx_quantize"]
-    t0 = time.perf_counter()
-    tr.run(19)
-    wall = time.perf_counter() - t0
-    ops.reset_launches()
-    tr.run(1)
-    after = ops.LAUNCHES["mx_quantize"]
-    shutil.rmtree(ckdir, ignore_errors=True)
-    recs = tr.events.of_kind("recovery")
-    out = {"recoveries": recs, "final_step": tr.step,
-           "qcfg": tr.qcfg.describe(), "quantize_per_step_before": before,
-           "quantize_per_step_after": after, "wall_s": wall,
-           "losses": [h["loss"] for h in tr.history]}
-    print("[recovery] " + json.dumps(out), flush=True)
-    want = apply_intervention(start, "bf16_activations")
-    if not (len(recs) == 1 and recs[0]["rolled_back"]
-            and recs[0]["step"] == 10 and "spike@step12" in recs[0]["reason"]
-            and tr.qcfg == want and tr.step == 21):
-        raise AssertionError(f"recovery did not roll back to step 10 and "
-                             f"switch to bf16_activations: {out}")
-    if before == 0 or after != 0:
-        raise AssertionError(f"quantize launches per step {before} before "
-                             f"and {after} after the intervention")
-    return out
+    outs = {}
+    for intervention in ("bf16_activations", "bump_exponent"):
+        shutil.rmtree(ckdir, ignore_errors=True)
+        armed = {"spike": True}
+
+        def batch_fn(step):
+            b = lm_batch(step, cfg.vocab, 2, 512, SEED, device="cuda")
+            hit = step == 12 and armed.pop("spike", False)
+            b["poison"] = torch.tensor(1e6 if hit else 1.0, device="cuda")
+            return b
+
+        def loss_fn(p, b, q):
+            loss, m = lm_loss(p, {"tokens": b["tokens"],
+                                  "labels": b["labels"]}, cfg, q)
+            return loss * b["poison"], m
+
+        tr = Trainer(loss_fn, _fresh(params, "cuda"), start, batch_fn,
+                     tcfg=TrainerConfig(total_steps=20, ckpt_dir=str(ckdir),
+                                        ckpt_every=5, peak_lr=1e-3,
+                                        spike_factor=5.0,
+                                        auto_intervention=intervention),
+                     ckpt_layout=lm_checkpoint_layout(cfg, "cuda"))
+        ops.reset_launches()
+        tr.run(1)
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        tr.run(19)
+        wall = time.perf_counter() - t0
+        ops.reset_launches()
+        tr.run(1)
+        after = dict(ops.LAUNCHES)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        recs = tr.events.of_kind("recovery")
+        losses = [h["loss"] for h in tr.history]
+        out = {"intervention": intervention, "recoveries": recs,
+               "final_step": tr.step, "qcfg": tr.qcfg.describe(),
+               "scale_mode": tr.qcfg.scale_mode,
+               "launches_per_step_before": before,
+               "launches_per_step_after": after, "wall_s": wall,
+               "losses": losses}
+        print("[recovery] " + json.dumps(out), flush=True)
+        want = apply_intervention(start, intervention)
+        if not (len(recs) == 1 and recs[0]["rolled_back"]
+                and recs[0]["step"] == 10
+                and "spike@step12" in recs[0]["reason"]
+                and tr.qcfg == want and tr.step == 21
+                and all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"recovery did not roll back to step 10 "
+                                 f"and apply {intervention}: {out}")
+        if intervention == "bf16_activations":
+            if before["mx_quantize"] == 0 or after["mx_quantize"] != 0:
+                raise AssertionError(
+                    f"quantize launches per step {before['mx_quantize']} "
+                    f"before and {after['mx_quantize']} after the "
+                    "intervention")
+        else:
+            idle = sorted(k for k in _train_kernels("mxfp8_e4m3")
+                          if after[k] == 0)
+            if tr.qcfg.scale_mode != "bump" or idle:
+                raise AssertionError(f"after bump_exponent: scale_mode "
+                                     f"{tr.qcfg.scale_mode!r}, kernels not "
+                                     f"launched {idle}")
+        outs[intervention] = out
+    return outs
 
 
 def phase_proxy():
@@ -1684,6 +2115,8 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     rows = phase_kernels()
+    lowbit_kernels()
+    phase_scale_modes()
     cfg = get_config("olmo-paper", "full")
     params = lm_init(cfg, torch.Generator().manual_seed(SEED), "cuda")
     per_prefill, per_decode = launches_per_call(params, cfg)
@@ -1706,11 +2139,11 @@ def main() -> int:
     paged_counts = paged["mxfp8_e4m3"]["launches"]["paged"]
     per_paged = paged_parity["mxfp8_e4m3"]["launches_per_paged_decode_step"]
     kernels = []
-    for name, (source, replaces) in ops.KERNELS.items():
+    for name, (sources, replaces) in ops.KERNELS.items():
         row = rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
+            "name": name, "route": "cuda", "source": sources[0],
+            "sources": list(sources), "replaces": replaces,
             "launches": (counts["mxfp8_e4m3"][name] if name in serve_path
                          else paged_counts[name]
                          if name == "mx_attention_decode_paged"

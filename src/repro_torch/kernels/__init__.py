@@ -1,10 +1,12 @@
 """Hand-written CUDA kernels for the MX hot spots (H100, sm_90a).
 
-  csrc/mx_quant.cuh  — the element cast and shared scale every kernel uses
+  csrc/mx_quant.cuh  — the element cast and the scale rules (floor, bump,
+                       adaptive) every kernel uses
   csrc/mx_quant.cu   — block-scale quantize-dequantize
-  csrc/mx_gemm.cuh   — the forward GEMM's quantize-on-load core
-  csrc/mx_matmul.cu  — forward MX GEMM, quantize on load, fp32 accumulation
   csrc/mx_gemm_sm90.cuh — quantize-once pre-pass and wgmma/TMA bf16 product
+  csrc/mx_small_m.cuh — one pass over W for a few rows (decode)
+  csrc/mx_matmul.cu  — forward MX GEMM: mx_small_m.cuh up to 8 rows, else
+                       the pre-pass and product of mx_gemm_sm90.cuh
   csrc/mx_matmul_bwd.cu — dgrad (blocks along N) and wgrad (along tokens)
   csrc/mx_attention.cu — flash forward (out and lse), Tq = 1 decode, and
                        decode through a page table

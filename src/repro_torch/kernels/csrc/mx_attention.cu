@@ -367,7 +367,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
                       ? __bfloat162float(vrow(s)[col]) : 0.f;
         amax = mx_nanmax(amax, fabsf(vals[j]));
       }
-      const int e = has_fmt ? mx_shared_exp(amax, f) : 0;
+      const int e = has_fmt ? mx_thread_exp(vals, amax, f) : 0;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const float x = has_fmt ? mx_cast(vals[j], e, f) : vals[j];
@@ -401,10 +401,11 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             int Tk, int d, int dv, int kind, int window,
                             int q_offset, int tile_k, int has_fmt, int mbits,
                             int min_normal_exp, int e_max, float max_normal,
-                            float scale, void* stream) {
+                            int scale_mode, float scale, void* stream) {
   if (d > MAXD || dv > MAXD || d <= 0 || dv <= 0 || tile_k <= 0)
     return (int)cudaErrorInvalidValue;
-  const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal);
+  const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
+                         scale_mode);
   dim3 grid((Tq + FA_ROWS - 1) / FA_ROWS, G, BH);
   cudaStream_t s = (cudaStream_t)stream;
   const __nv_bfloat16* qq = (const __nv_bfloat16*)q;
@@ -440,11 +441,12 @@ static int decode_launch(const void* q, const void* k, const void* v,
                          int d, int dv, int H, const DecRows& rows,
                          long long valid_sb, int has_fmt, int mbits,
                          int min_normal_exp, int e_max, float max_normal,
-                         float scale, void* stream) {
+                         int scale_mode, float scale, void* stream) {
   const int smem = mx_decode_smem_bytes(G, S, d, dv);
   if (G > MAXG || dv > MAXD || smem > 48 * 1024)
     return (int)cudaErrorInvalidValue;
-  const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal);
+  const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
+                         scale_mode);
   cudaStream_t s = (cudaStream_t)stream;
 #define DEC_LAUNCH(N)                                                        \
   mx_decode_kernel<N, PAGED><<<BH, DEC_WARPS * 32, (size_t)smem, s>>>(       \
@@ -470,11 +472,12 @@ extern "C" int mx_attn_decode(const void* q, const void* k, const void* v,
                               long long vss, long long vsh,
                               long long valid_sb, int has_fmt, int mbits,
                               int min_normal_exp, int e_max,
-                              float max_normal, float scale, void* stream) {
+                              float max_normal, int scale_mode, float scale,
+                              void* stream) {
   const DecRows rows{ksb, kss, ksh, vsb, vss, vsh, nullptr, 0, 1, 1};
   return decode_launch<false>(q, k, v, valid, out, BH, G, S, d, dv, H, rows,
                               valid_sb, has_fmt, mbits, min_normal_exp,
-                              e_max, max_normal, scale, stream);
+                              e_max, max_normal, scale_mode, scale, stream);
 }
 
 // q (B*H, G, d); k/v pools (N, ps, H, ·) with strides (ksn, kss, ksh) and
@@ -488,14 +491,14 @@ extern "C" int mx_attn_decode_paged(const void* q, const void* k,
                                     long long vsn, long long vss,
                                     long long vsh, int has_fmt, int mbits,
                                     int min_normal_exp, int e_max,
-                                    float max_normal, float scale,
-                                    void* stream) {
+                                    float max_normal, int scale_mode,
+                                    float scale, void* stream) {
   if (ps <= 0 || ps % 32 || n_pages <= 0 || P <= 0)
     return (int)cudaErrorInvalidValue;
   const DecRows rows{ksn, kss, ksh, vsn, vss, vsh, (const int*)pt, P, ps,
                      n_pages};
   return decode_launch<true>(q, k, v, valid, out, B * H, G, P * ps, d, dv, H,
                              rows, (long long)P * ps, has_fmt, mbits,
-                             min_normal_exp, e_max, max_normal, scale,
-                             stream);
+                             min_normal_exp, e_max, max_normal, scale_mode,
+                             scale, stream);
 }

@@ -311,10 +311,11 @@ extern "C" int mx_flash_bwd(const void* q, const void* k, const void* v,
                             int dv, int kind, int window, int q_offset,
                             int out_fp32, int has_fmt, int mbits,
                             int min_normal_exp, int e_max, float max_normal,
-                            float scale, void* stream) {
+                            int scale_mode, float scale, void* stream) {
   if (d > 128 || dv > 128 || d <= 0 || dv <= 0)
     return (int)cudaErrorInvalidValue;
-  const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal);
+  const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
+                         scale_mode);
   cudaStream_t s = (cudaStream_t)stream;
   if (BH <= 0 || G <= 0 || Tq <= 0 || Tk <= 0) return (int)cudaGetLastError();
   const long long rows = (long long)BH * G * Tq;

@@ -1,9 +1,11 @@
-// MX GEMM core of the backward kernels on Hopper: quantize each operand
-// once, then a pipelined bf16 "TN" product on the tensor cores.
+// MX GEMM core on Hopper of the forward GEMM at large M and of the dgrad
+// and wgrad: quantize each operand once, then a pipelined bf16 "TN"
+// product on the tensor cores.
 //
 //   C (M, N) = A (M, Kp) @ B (N, Kp)^T, both operands contraction-major.
 //
-// Replaces: the tile bodies `_mx_dgrad_kernel` and `_mx_wgrad_kernel`
+// Replaces: the tile bodies `_mx_mm_kernel` (src/repro/kernels/
+//   mx_matmul.py:40-58), `_mx_dgrad_kernel` and `_mx_wgrad_kernel`
 //   (src/repro/kernels/mx_matmul_bwd.py:47-70, :114-139).
 // Bound: operations at the training step's shapes (4096 tokens against
 //   512..32000-wide weights: a 4096 x 32000 x 512 product does about 450
@@ -32,7 +34,10 @@
 //      flight with TMA (`cp.async.bulk.tensor`, 128-byte swizzle, the
 //      layout the wgmma descriptors name) and full/empty mbarriers.  Rows
 //      and columns past M and N are zero filled by TMA and masked in the
-//      epilogue, which rounds once to the output type.
+//      epilogue, which rounds once to the output type and stages the tile
+//      in the (then idle) ring so that it leaves in 16-byte row chunks:
+//      stored from the fragments directly, the 262 MB output of the
+//      forward lm_head took half the product's time.
 //   When the output tiles are too few to fill the card, the contraction
 //   is split across CTAs (the wrapper plans it): each writes its fp32
 //   partial to a workspace and `mx_tn_reduce_kernel` sums the splits in a
@@ -45,7 +50,14 @@
 
 #include "mx_quant.cuh"
 
-namespace sm90 {
+// Every name of this file lives in the namespace that the including source
+// names (MX_SM90_NS), so a profiler tells the forward GEMM's kernels
+// (mx_matmul.cu) from the backward's (mx_matmul_bwd.cu) by name; `sm90`
+// is its alias in both.
+#ifndef MX_SM90_NS
+#error "define MX_SM90_NS before including mx_gemm_sm90.cuh"
+#endif
+namespace MX_SM90_NS {
 constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
 constexpr int CONSUMERS = 2;                    // warpgroups of 64 rows
 constexpr int THREADS = CONSUMERS * 128 + 32;   // + one producer warp
@@ -191,7 +203,6 @@ __device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p,
                                                           float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
-}  // namespace sm90
 
 // Pre-pass, contraction-contiguous operand: src (R, Kc) quantized along Kc
 // into dst (R, depth) bf16, zero padded on [Kc, depth).  A warp owns
@@ -203,7 +214,6 @@ __global__ void __launch_bounds__(256)
 mx_operand_rows_kernel(const T* __restrict__ src,
                        __nv_bfloat16* __restrict__ dst, long long R, int Kc,
                        int depth, int has, MxFmt f) {
-  using sm90::ROWS_BPW;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int col0 = (blockIdx.x * 8 + warp) * (32 * ROWS_BPW) + lane;
   for (long long row = blockIdx.y; row < R; row += gridDim.y) {
@@ -258,7 +268,6 @@ __global__ void __launch_bounds__(256)
 mx_operand_cols_kernel(const T* __restrict__ src,
                        __nv_bfloat16* __restrict__ dst, int Tn, int C,
                        int depth, int has, MxFmt f) {
-  using sm90::PRE_T;
   __shared__ float tile[PRE_T][PRE_T + 1];                    // [token][col]
   __shared__ __align__(16) __nv_bfloat16 out[PRE_T][PRE_T + 8];  // [col][t]
   const int t0 = blockIdx.y * PRE_T, c0 = blockIdx.x * PRE_T;
@@ -301,18 +310,58 @@ mx_operand_cols_kernel(const T* __restrict__ src,
   }
 }
 
+// Writes a consumer's accumulators (the m64nNk16 fragment: warp w of
+// warpgroup wg owns rows 64 wg + 16 w .. + 15; d[4j + 2h + e] is row
+// lane/4 + 8h, column 8j + 2(lane%4) + e) to out[m0.., n0..] rounded to T,
+// through a row-major copy of the tile in shared memory (rows padded by 16
+// bytes, so the fragment's 8 rows of a store hit distinct banks), then
+// with 16-byte stores along the rows (element stores where N leaves the
+// rows unaligned or the tile's edge cuts a chunk).  Rows and columns past
+// M and N are not written.
+template <typename T>
+__device__ __forceinline__ void store_tile(const float* d, uint8_t* smem,
+                                           T* __restrict__ out, int M,
+                                           int N, int m0, int n0, int wg) {
+  constexpr int V = 16 / sizeof(T);   // elements of a 16-byte chunk
+  constexpr int LD = BN + V;
+  T* tile = reinterpret_cast<T*>(smem);
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = wg * 64 + (t / 32) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = j * 8 + (lane % 4) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      store_pair<T>(tile + (r0 + 8 * h) * LD + c, d[4 * j + 2 * h],
+                    d[4 * j + 2 * h + 1]);
+  }
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
+  const bool vec = N % V == 0;
+  for (int i = threadIdx.x; i < BM * BN / V; i += CONSUMERS * 128) {
+    const int r = i / (BN / V), c = (i % (BN / V)) * V;
+    const int gr = m0 + r, gc = n0 + c;
+    if (gr >= M || gc >= N) continue;
+    const T* src = tile + r * LD + c;
+    T* dst = out + (long long)gr * N + gc;
+    if (vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < V && gc + e < N; ++e) dst[e] = src[e];
+    }
+  }
+}
+
 // One BM x BN tile of C over k-tiles [z * per, min((z + 1) * per,
 // ktiles)) of split z = blockIdx.z.  With `part` set the fp32 sums go to
 // part[(z * M + m) * N + n]; else C gets OutT.  `m_fast`: blockIdx.x walks
 // the M tiles (chosen when they are fewer, so the CTAs that share a tile
 // of the larger operand run together).
 template <typename OutT>
-__global__ void __launch_bounds__(sm90::THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 1)
 mx_tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
                   OutT* __restrict__ C, float* __restrict__ part, int M,
                   int N, int ktiles, int per, int m_fast) {
-  using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
@@ -375,38 +424,15 @@ mx_tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
   fence_acc(d);
 
-  // Fragment of m64nNk16: warp w of the group owns rows 16w..16w+15;
-  // d[4j + 2h + e] is row lane/4 + 8h, column 8j + 2(lane%4) + e.
-  const int t = threadIdx.x % 128, lane = t % 32;
-  const int r0 = m0 + wg * 64 + (t / 32) * 16 + lane / 4;
-  const bool pairs = (N % 2) == 0;
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    const int c = n0 + j * 8 + (lane % 4) * 2;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = r0 + 8 * h;
-      if (r >= M || c >= N) continue;
-      const float a = d[4 * j + 2 * h], b = d[4 * j + 2 * h + 1];
-      if (part) {
-        float* p = part + ((long long)blockIdx.z * M + r) * N + c;
-        if (pairs) {
-          store_pair<float>(p, a, b);
-        } else {
-          p[0] = a;
-          if (c + 1 < N) p[1] = b;
-        }
-      } else {
-        OutT* p = C + (long long)r * N + c;
-        if (pairs) {
-          store_pair<OutT>(p, a, b);
-        } else {
-          mx_store<OutT>(p, a);
-          if (c + 1 < N) mx_store<OutT>(p + 1, b);
-        }
-      }
-    }
-  }
+  // The epilogue goes through shared memory: every k-tile this CTA loaded
+  // has been consumed, so the ring is free once both warpgroups are done
+  // with it (named barrier 1: the producer warp has exited).
+  asm volatile("bar.sync 1, %0;" ::"n"(CONSUMERS * 128) : "memory");
+  if (part)
+    store_tile<float>(d, smem, part + (long long)blockIdx.z * M * N, M, N,
+                      m0, n0, wg);
+  else
+    store_tile<OutT>(d, smem, C, M, N, m0, n0, wg);
 }
 
 // C = OutT(sum over splits of part), summed in split order.
@@ -421,7 +447,6 @@ __global__ void mx_tn_reduce_kernel(const float* __restrict__ part,
   mx_store<OutT>(C + i, s);
 }
 
-namespace sm90 {
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
                                 cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*,
@@ -538,4 +563,5 @@ static int tn_gemm(const Operand& a, const Operand& b, void* c,
       part, (OutT*)c, MN, splits);
   return (int)cudaGetLastError();
 }
-}  // namespace sm90
+}  // namespace MX_SM90_NS
+namespace sm90 = MX_SM90_NS;

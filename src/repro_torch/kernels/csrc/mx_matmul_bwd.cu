@@ -28,6 +28,7 @@
 //   are summed in a fixed order by a second pass: no float atomics, so a
 //   replayed step gives the same bits.  Every launch is checked with
 //   cudaGetLastError and its code returned.
+#define MX_SM90_NS bwd
 #include "mx_gemm_sm90.cuh"
 
 // dx (M, K) = Q(dy) (M, N) @ Q(W (K, N))^T, blocks along N.  dyq (M, depth)
@@ -38,11 +39,14 @@ extern "C" int mx_matmul_dgrad(const void* dy, const void* w, void* dx,
                                int N, int K, int depth, int splits,
                                int is_fp32, int has_g, int g_mbits,
                                int g_min_normal_exp, int g_e_max,
-                               float g_max_normal, int has_w, int w_mbits,
-                               int w_min_normal_exp, int w_e_max,
-                               float w_max_normal, void* stream) {
-  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max, g_max_normal);
-  const MxFmt fw = mx_fmt(w_mbits, w_min_normal_exp, w_e_max, w_max_normal);
+                               float g_max_normal, int g_scale_mode,
+                               int has_w, int w_mbits, int w_min_normal_exp,
+                               int w_e_max, float w_max_normal,
+                               int w_scale_mode, void* stream) {
+  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max, g_max_normal,
+                          g_scale_mode);
+  const MxFmt fw = mx_fmt(w_mbits, w_min_normal_exp, w_e_max, w_max_normal,
+                          w_scale_mode);
   cudaStream_t s = (cudaStream_t)stream;
   if (M <= 0 || N <= 0 || K <= 0 || depth < N)
     return (int)cudaErrorInvalidValue;
@@ -72,11 +76,14 @@ extern "C" int mx_matmul_wgrad(const void* x, const void* dy, void* dw,
                                int K, int N, int depth, int splits,
                                int is_fp32, int has_a, int a_mbits,
                                int a_min_normal_exp, int a_e_max,
-                               float a_max_normal, int has_g, int g_mbits,
-                               int g_min_normal_exp, int g_e_max,
-                               float g_max_normal, void* stream) {
-  const MxFmt fa = mx_fmt(a_mbits, a_min_normal_exp, a_e_max, a_max_normal);
-  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max, g_max_normal);
+                               float a_max_normal, int a_scale_mode,
+                               int has_g, int g_mbits, int g_min_normal_exp,
+                               int g_e_max, float g_max_normal,
+                               int g_scale_mode, void* stream) {
+  const MxFmt fa = mx_fmt(a_mbits, a_min_normal_exp, a_e_max, a_max_normal,
+                          a_scale_mode);
+  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max, g_max_normal,
+                          g_scale_mode);
   cudaStream_t s = (cudaStream_t)stream;
   if (T <= 0 || K <= 0 || N <= 0 || depth < T)
     return (int)cudaErrorInvalidValue;

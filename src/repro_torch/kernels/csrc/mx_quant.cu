@@ -7,7 +7,9 @@
 //   (or, at the serve path's small shapes, the launch).
 // Design: one warp is one MX block.  Lane i holds element i, the block max
 //   is a __shfl_xor_sync reduction and the scale comes from the exponent
-//   bits (mx_quant.cuh).  Consecutive lanes read consecutive elements, so
+//   bits (mx_quant.cuh), under the format's scale rule (floor, bump, or
+//   adaptive with the two block errors summed by the same shuffles).
+//   Consecutive lanes read consecutive elements, so
 //   loads and stores coalesce.  A partial last block (K not a multiple of
 //   32) is zero-padded in registers, as `block_reshape` pads, and its pad
 //   lanes are never stored.
@@ -32,8 +34,10 @@ __global__ void mx_quantize_kernel(const T* __restrict__ x, T* __restrict__ y,
 
 extern "C" int mx_quantize_lastdim(const void* x, void* y, long long M, int K,
                                    int is_bf16, int mbits, int min_normal_exp,
-                                   int e_max, float max_normal, void* stream) {
-  const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal);
+                                   int e_max, float max_normal,
+                                   int scale_mode, void* stream) {
+  const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
+                         scale_mode);
   const long long warps = M * ((K + 31) / 32);
   const int threads = 256;
   const long long blocks = (warps * 32 + threads - 1) / threads;

@@ -2,9 +2,12 @@
 //
 // Replaces: the body of `_quantize_block_tile` in
 //   src/repro/kernels/mx_quant.py, which kernels 2-8 of the Pallas package
-//   inline (mx_matmul.py, mx_attention.py).
+//   inline (mx_matmul.py, mx_attention.py), and the scale rules of
+//   `shared_exponent` (src/repro/core/mx.py), which the reference runs
+//   through its jnp oracle for the non-floor modes.
 // Bound: pure ALU on values already in registers; the kernels that include
-//   it are bound by their own loads.
+//   it are bound by their own loads, or by this cast's instructions where
+//   a kernel casts more elements than it can hide behind its bytes.
 // Design: one code path for every kernel, so the cast cannot drift between
 //   them.  Powers of two come from the exponent field (`__uint_as_float`),
 //   exponents are read with `__float_as_uint`; no exp2f/log2f.  Rounding is
@@ -13,17 +16,32 @@
 //   NaN like jnp.max.  The final `x + (y - x)` is the fp32 straight-through
 //   assembly of `repro.core.quantize_mx`, so an infinite input comes out NaN
 //   exactly as there.  Build without --use_fast_math and with -fmad=false.
+//   The format carries its scale rule (MxFmt::scale_mode), applied in the
+//   reference's order: the floor exponent e; "bump" adds 1 when the block
+//   max over 2^e exceeds max_normal (division by a power of two is
+//   monotone, so the max decides for the whole block); "adaptive" takes
+//   e + 1 only when the block's summed squared error at e + 1 is strictly
+//   smaller than at e; then the clip and the zero-block rule.  A block is
+//   held either one element a lane (`mx_warp_*`) or whole by one thread
+//   (`mx_thread_*`); the adaptive sums run in the same butterfly order in
+//   both, so every kernel takes the same choice for the same block (the
+//   plain version's torch.sum may order its sum otherwise, so the two can
+//   differ only on near ties).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+// Scale rules, as `scale_mode` of repro.core.mx.shared_exponent.
+enum { MX_FLOOR = 0, MX_BUMP = 1, MX_ADAPTIVE = 2 };
+
 struct MxFmt {
   int mbits;           // explicit mantissa bits
   int min_normal_exp;  // 1 - bias
   int e_max;           // exponent of the largest normal
   float max_normal;
+  int scale_mode;      // MX_FLOOR, MX_BUMP or MX_ADAPTIVE
 };
 
 __device__ __forceinline__ int mx_floor_log2(float x) {
@@ -40,37 +58,65 @@ __device__ __forceinline__ float mx_nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// Shared exponent of a block from its max magnitude (floor rule).
-__device__ __forceinline__ int mx_shared_exp(float amax, const MxFmt& f) {
-  int e = mx_floor_log2(amax > 0.f ? amax : 1.f) - f.e_max;
-  e = max(-126, min(127, e));
-  return amax > 0.f ? e : -126;
-}
-
 // 2^e for e in [-149, 127], subnormals included, from the bit pattern.
 __device__ __forceinline__ float mx_exp2_any(int e) {
   return e >= -126 ? __uint_as_float((unsigned)(e + 127) << 23)
                    : __uint_as_float(1u << (e + 149));
 }
 
-// Quantize-dequantize one fp32 value with its block's shared exponent.
-// x / 2^k is computed as x * 2^-k: both are the correctly rounded value of
-// the same real number (the reciprocal of a power of two is exact, as a
+// The floor rule's exponent of a block with max magnitude amax, before
+// the clip.
+__device__ __forceinline__ int mx_floor_exp(float amax, const MxFmt& f) {
+  return mx_floor_log2(amax > 0.f ? amax : 1.f) - f.e_max;
+}
+
+// The clip to [-126, 127], and -126 for an all-zero (or NaN) block.
+__device__ __forceinline__ int mx_final_exp(int e, float amax) {
+  e = max(-126, min(127, e));
+  return amax > 0.f ? e : -126;
+}
+
+// The bump rule's test: whether the block max over 2^e exceeds max_normal.
+__device__ __forceinline__ int mx_overflows(float amax, int e,
+                                            const MxFmt& f) {
+  return __fmul_rn(amax, mx_exp2_any(-max(-126, min(127, e)))) > f.max_normal;
+}
+
+// Quantize-dequantize one fp32 value with the shared exponent e (clipped
+// here as exp2_int clips), before the straight-through assembly.  x / 2^k
+// is computed as x * 2^-k: both are the correctly rounded value of the
+// same real number (the reciprocal of a power of two is exact, as a
 // subnormal at worst), so the result is bitwise the reference's division.
-__device__ __forceinline__ float mx_cast(float x, int e, const MxFmt& f) {
+// The element's exponent is read from r's bits (zero and fp32 subnormals
+// read -127) and raised to min_normal_exp, so qe lies in
+// [min_normal_exp - mbits, 128 - mbits], inside [-17, 127] for every OCP
+// element format, and both 2^qe and 2^-qe are built from the exponent
+// field without a clip (2^-qe reads 0 at qe = 127, which only an infinite
+// or NaN r reaches).  The reference's zero and non-finite branches are
+// left out: a zero r gives a signed zero, which the straight-through
+// assembly of mx_cast turns into +0 as the branch's +0 does, and a
+// non-finite x comes out NaN there either way; in mx_sq_err such a block
+// compares two non-finite errors, which keeps e, as NaN errors do.
+__device__ __forceinline__ float mx_cast_value(float x, int e,
+                                               const MxFmt& f) {
   const float scale = mx_exp2_int(e);
   const float r = __fmul_rn(x, mx_exp2_any(-max(-126, min(127, e))));
-  const float mag = fabsf(r);
-  int ee = mx_floor_log2(mag > 0.f ? mag : 1.f);
-  ee = max(ee, f.min_normal_exp);
-  const int qe = max(-126, min(127, ee - f.mbits));
-  const float quantum = mx_exp2_int(qe);
-  float q = __fmul_rn(rintf(__fmul_rn(r, mx_exp2_any(-qe))), quantum);
-  q = fminf(fmaxf(q, -f.max_normal), f.max_normal);
-  q = mag > 0.f ? q : 0.f;
-  q = isfinite(r) ? q : r;
-  const float y = __fmul_rn(q, scale);
-  return __fadd_rn(x, __fsub_rn(y, x));
+  const int qe = max(mx_floor_log2(r), f.min_normal_exp) - f.mbits;
+  const float quantum = __uint_as_float((unsigned)(qe + 127) << 23);
+  const float inv_quantum = __uint_as_float((unsigned)(127 - qe) << 23);
+  const float q = __fmul_rn(rintf(__fmul_rn(r, inv_quantum)), quantum);
+  return __fmul_rn(fminf(fmaxf(q, -f.max_normal), f.max_normal), scale);
+}
+
+// The cast as quantize_mx returns it: x + (y - x) in fp32.
+__device__ __forceinline__ float mx_cast(float x, int e, const MxFmt& f) {
+  return __fadd_rn(x, __fsub_rn(mx_cast_value(x, e, f), x));
+}
+
+// One element's term of the adaptive rule's block error at exponent e.
+__device__ __forceinline__ float mx_sq_err(float x, int e, const MxFmt& f) {
+  const float d = __fsub_rn(mx_cast_value(x, e, f), x);
+  return __fmul_rn(d, d);
 }
 
 // Block max over a warp: lane i holds one element of a 32-block.
@@ -82,15 +128,80 @@ __device__ __forceinline__ float mx_warp_absmax(float v) {
   return m;
 }
 
-// Quantize a 32-block held one element per lane.
-__device__ __forceinline__ float mx_warp_quant(float v, const MxFmt& f) {
-  return mx_cast(v, mx_shared_exp(mx_warp_absmax(v), f), f);
-}
-
 __device__ __forceinline__ float mx_warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Shared exponent of a 32-block held one element per lane, under f's scale
+// rule.  Every lane gets the same value: after each butterfly step lanes
+// i and i ^ o hold a + b and b + a, which fp32 addition makes equal.
+__device__ __forceinline__ int mx_warp_exp(float v, const MxFmt& f) {
+  const float amax = mx_warp_absmax(v);
+  int e = mx_floor_exp(amax, f);
+  if (f.scale_mode == MX_BUMP) {
+    e += mx_overflows(amax, e, f);
+  } else if (f.scale_mode == MX_ADAPTIVE) {
+    const float err0 = mx_warp_sum(mx_sq_err(v, e, f));
+    const float err1 = mx_warp_sum(mx_sq_err(v, e + 1, f));
+    e += err1 < err0;
+  }
+  return mx_final_exp(e, amax);
+}
+
+// Quantize a 32-block held one element per lane.
+__device__ __forceinline__ float mx_warp_quant(float v, const MxFmt& f) {
+  return mx_cast(v, mx_warp_exp(v, f), f);
+}
+
+// Sum of s[0..31] in mx_warp_sum's butterfly order (lane i holding s[i]:
+// step o adds s[i + o] into s[i] for i < o); overwrites s.
+__device__ __forceinline__ float mx_tree_sum(float (&s)[32]) {
+#pragma unroll
+  for (int l = 0; l < 5; ++l) {
+    const int o = 16 >> l;   // a counted loop, so both unroll fully
+#pragma unroll
+    for (int i = 0; i < o; ++i) s[i] = __fadd_rn(s[i], s[i + o]);
+  }
+  return s[0];
+}
+
+// Block error of v[0..31] at exponent e, in the butterfly order.
+__device__ __forceinline__ float mx_thread_err(const float (&v)[32], int e,
+                                               const MxFmt& f) {
+  float s[32];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = mx_sq_err(v[j], e, f);
+  return mx_tree_sum(s);
+}
+
+// Shared exponent of a 32-block v[0..31] held by one thread, given its max
+// magnitude (NaN-propagating), under f's scale rule: the value that
+// mx_warp_exp gives for the same block.
+__device__ __forceinline__ int mx_thread_exp(const float (&v)[32], float amax,
+                                             const MxFmt& f) {
+  int e = mx_floor_exp(amax, f);
+  if (f.scale_mode == MX_BUMP) {
+    e += mx_overflows(amax, e, f);
+  } else if (f.scale_mode == MX_ADAPTIVE) {
+    const float err0 = mx_thread_err(v, e, f);
+    const float err1 = mx_thread_err(v, e + 1, f);
+    e += err1 < err0;
+  }
+  return mx_final_exp(e, amax);
+}
+
+// Quantize a 32-block held by one thread, in place: the max without
+// shuffles, then the exponent and cast of mx_warp_quant, bit for bit.
+__device__ __forceinline__ void mx_thread_quant(float (&v)[32],
+                                                const MxFmt& f) {
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) amax = mx_nanmax(amax, fabsf(v[j]));
+  const int e = mx_thread_exp(v, amax, f);
+#pragma unroll
+  for (int j = 0; j < 32; ++j) v[j] = mx_cast(v[j], e, f);
 }
 
 __device__ __forceinline__ float mx_warp_max(float v) {
@@ -119,11 +230,12 @@ template <> __device__ __forceinline__ void mx_store<__nv_bfloat16>(
 }
 
 static inline MxFmt mx_fmt(int mbits, int min_normal_exp, int e_max,
-                           float max_normal) {
+                           float max_normal, int scale_mode) {
   MxFmt f;
   f.mbits = mbits;
   f.min_normal_exp = min_normal_exp;
   f.e_max = e_max;
   f.max_normal = max_normal;
+  f.scale_mode = scale_mode;
   return f;
 }

@@ -4,8 +4,9 @@ Each wrapper checks device, dtype, shape and contiguity, launches its kernel
 on PyTorch's current stream and adds one to its launch count.  For tensors
 on the CPU it calls the kernel's plain version in ``ref.py`` instead; for
 CUDA tensors it launches the kernel or raises (there is no fallback).  The
-kernels implement the "floor" scale rule only, as the Pallas kernels do;
-other scale modes raise ``NotImplementedError`` on CUDA.
+kernels run every scale rule of ``repro_torch.core.mx`` ("floor", "bump",
+"adaptive"): the rule travels in the format arguments of each C entry
+point, and an unknown rule raises here, before any launch.
 
 ``mx_quantize`` is a ``torch.autograd.Function`` whose backward is the
 identity (the reference's straight-through estimator); the GEMM and
@@ -30,7 +31,8 @@ from . import build, ref
 __all__ = ["mx_quantize", "mx_matmul", "mx_matmul_dgrad", "mx_matmul_wgrad",
            "mx_flash_attention", "mx_flash_attention_bwd",
            "mx_attention_decode", "mx_attention_decode_paged", "LAUNCHES",
-           "reset_launches", "KERNELS", "bwd_gemm_plan"]
+           "reset_launches", "KERNELS", "bwd_gemm_plan", "fwd_gemm_plan",
+           "SCALE_MODES"]
 
 #: Launch count of each kernel: one per launch, counted only where the
 #: kernel is launched (never for the plain versions).
@@ -41,36 +43,45 @@ LAUNCHES: Dict[str, int] = {"mx_quantize": 0, "mx_matmul": 0,
                             "mx_attention_decode": 0,
                             "mx_attention_decode_paged": 0}
 
-#: name -> (source file, the Pallas function it replaces)
+_CSRC = "src/repro_torch/kernels/csrc/"
+
+#: name -> (its sources: the entry point's file, then the headers it
+#: builds on beside mx_quant.cuh, which all share; the Pallas function it
+#: replaces)
 KERNELS = {
-    "mx_quantize": ("src/repro_torch/kernels/csrc/mx_quant.cu",
+    "mx_quantize": ((_CSRC + "mx_quant.cu",),
                     "src/repro/kernels/mx_quant.py:66"),
-    "mx_matmul": ("src/repro_torch/kernels/csrc/mx_matmul.cu",
+    "mx_matmul": ((_CSRC + "mx_matmul.cu", _CSRC + "mx_small_m.cuh",
+                   _CSRC + "mx_gemm_sm90.cuh"),
                   "src/repro/kernels/mx_matmul.py:63"),
-    "mx_matmul_dgrad": ("src/repro_torch/kernels/csrc/mx_matmul_bwd.cu",
+    "mx_matmul_dgrad": ((_CSRC + "mx_matmul_bwd.cu",
+                         _CSRC + "mx_gemm_sm90.cuh"),
                         "src/repro/kernels/mx_matmul_bwd.py:73"),
-    "mx_matmul_wgrad": ("src/repro_torch/kernels/csrc/mx_matmul_bwd.cu",
+    "mx_matmul_wgrad": ((_CSRC + "mx_matmul_bwd.cu",
+                         _CSRC + "mx_gemm_sm90.cuh"),
                         "src/repro/kernels/mx_matmul_bwd.py:142"),
-    "mx_flash_attention": ("src/repro_torch/kernels/csrc/mx_attention.cu",
+    "mx_flash_attention": ((_CSRC + "mx_attention.cu",),
                            "src/repro/kernels/mx_attention.py:156"),
-    "mx_flash_attention_bwd": (
-        "src/repro_torch/kernels/csrc/mx_attention_bwd.cu",
-        "src/repro/kernels/mx_attention.py:275"),
-    "mx_attention_decode": ("src/repro_torch/kernels/csrc/mx_attention.cu",
+    "mx_flash_attention_bwd": ((_CSRC + "mx_attention_bwd.cu",),
+                               "src/repro/kernels/mx_attention.py:275"),
+    "mx_attention_decode": ((_CSRC + "mx_attention.cu",),
                             "src/repro/kernels/mx_attention.py:455"),
-    "mx_attention_decode_paged": (
-        "src/repro_torch/kernels/csrc/mx_attention.cu",
-        "src/repro/kernels/mx_attention.py:407"),
+    "mx_attention_decode_paged": ((_CSRC + "mx_attention.cu",),
+                                  "src/repro/kernels/mx_attention.py:407"),
 }
+
+#: The scale rules and their codes in the kernels' format arguments
+#: (``MX_FLOOR``, ``MX_BUMP``, ``MX_ADAPTIVE`` in csrc/mx_quant.cuh).
+SCALE_MODES = {"floor": 0, "bump": 1, "adaptive": 2}
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
-_FMT = [_I, _I, _I, _F]
+# mbits, min_normal_exp, e_max, max_normal, scale rule
+_FMT = [_I, _I, _I, _F, _I]
 _SIGNATURES = {
     "mx_quantize_lastdim": ("mx_quant", [_P, _P, _LL, _I, _I, *_FMT, _P]),
-    "mx_matmul": ("mx_matmul", [_P, _P, _P, _P, _I, _I, _I, _I, _I, *_FMT,
-                                _I, *_FMT, _P]),
-    "mx_matmul_splits": ("mx_matmul", [_I, _I, _I]),
+    "mx_matmul": ("mx_matmul", [_P] * 6 + [_I] * 7
+                  + [_I, *_FMT, _I, *_FMT, _P]),
     "mx_matmul_dgrad": ("mx_matmul_bwd", [_P] * 6 + [_I] * 6
                         + [_I, *_FMT, _I, *_FMT, _P]),
     "mx_matmul_wgrad": ("mx_matmul_bwd", [_P] * 6 + [_I] * 6
@@ -90,9 +101,17 @@ _SIGNATURES = {
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 _KIND = {"causal": 0, "full": 1, "window": 2}
 
-#: Output tile (rows, columns) and k-tile depth of the backward GEMMs
+#: Output tile (rows, columns) and k-tile depth of the wgmma GEMMs
 #: (``csrc/mx_gemm_sm90.cuh``), and the H100's SM count.
 BWD_TILE, BWD_DEPTH, _SMS = (128, 256), 64, 132
+#: The forward GEMM's small-M kernel (``csrc/mx_small_m.cuh``): rows it
+#: takes at most, and 32-row slabs a CTA covers at most (one for each of
+#: its 8 warps).  Above FWD_SMALL_M rows the forward runs the quantize-once
+#: pre-pass and the wgmma product, as the backward GEMMs do.  Both cast W
+#: once; the small-M kernel also skips the pre-pass's scratch round trip,
+#: but its FMAs grow with M (``chip_smoke.py`` times both paths at 4, 6
+#: and 8 rows; PERF.md).
+FWD_SMALL_M, FWD_SLABS = 8, 8
 
 
 def reset_launches() -> None:
@@ -117,10 +136,12 @@ def _launch(counter: str, name: str, *args) -> None:
     LAUNCHES[counter] += 1
 
 
-def _fmt_args(fmt: Optional[ElementFormat]):
+def _fmt_args(fmt: Optional[ElementFormat], scale_mode: str):
+    """A format's arguments of the C entry points, its scale rule last."""
     if fmt is None:
-        return [0, 0, 0, 0.0]
-    return [fmt.mbits, fmt.min_normal_exp, fmt.e_max, fmt.max_normal]
+        return [0, 0, 0, 0.0, 0]
+    return [fmt.mbits, fmt.min_normal_exp, fmt.e_max, fmt.max_normal,
+            SCALE_MODES[scale_mode]]
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -131,10 +152,9 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def _check_mx(name: str, fmt, block: int, scale_mode: str) -> None:
-    if fmt is not None and scale_mode != "floor":
-        raise NotImplementedError(
-            f"{name}: the CUDA kernels implement the 'floor' scale rule only, "
-            f"not {scale_mode!r} (queued in ROADMAP.md)")
+    if scale_mode not in SCALE_MODES:
+        raise ValueError(f"{name}: unknown scale_mode {scale_mode!r}; the "
+                         f"kernels run {sorted(SCALE_MODES)}")
     if fmt is not None and block != MX_BLOCK:
         raise NotImplementedError(
             f"{name}: the CUDA kernels use {MX_BLOCK}-wide MX blocks, "
@@ -160,7 +180,7 @@ class _Quantize(torch.autograd.Function):
         M = xm.numel() // max(K, 1)
         _launch("mx_quantize", "mx_quantize_lastdim", xm.data_ptr(),
                 y.data_ptr(), M, K, int(x.dtype == torch.bfloat16),
-                *_fmt_args(fmt))
+                *_fmt_args(fmt, scale_mode))
         return torch.movedim(y, -1, axis)
 
     @staticmethod
@@ -224,12 +244,34 @@ def mx_matmul(a: torch.Tensor, b: torch.Tensor,
     b = b.contiguous()
     M = a2.shape[0]
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    work = _workspace(_fn("mx_matmul_splits")(M, N, K), M, N, a.device)
+    if c.numel() == 0 or K == 0:
+        return c.zero_().reshape(a.shape[:-1] + (N,))
+    small, depth, splits = fwd_gemm_plan(M, N, K)
+    aq = bq = None
+    if not small:
+        aq = None if _in_place(a2, fmt_a) else _bwd_scratch(M, depth,
+                                                            a.device)
+        bq = _bwd_scratch(N, depth, a.device)
+    work = _workspace(splits, M, N, a.device)
     _launch("mx_matmul", "mx_matmul", a2.data_ptr(), b.data_ptr(),
-            c.data_ptr(), _ptr(work), M, N, K, is_fp32,
-            int(fmt_a is not None), *_fmt_args(fmt_a),
-            int(fmt_b is not None), *_fmt_args(fmt_b))
+            c.data_ptr(), _ptr(work), _ptr(aq), _ptr(bq), M, N, K, depth,
+            splits, int(small), is_fp32, int(fmt_a is not None),
+            *_fmt_args(fmt_a, scale_mode), int(fmt_b is not None),
+            *_fmt_args(fmt_b, scale_mode))
     return c.reshape(a.shape[:-1] + (N,))
+
+
+def fwd_gemm_plan(M: int, N: int, K: int) -> Tuple[bool, int, int]:
+    """``(small, depth, splits)`` of a forward GEMM (M, K) @ (K, N).
+
+    Up to FWD_SMALL_M rows the small-M kernel reads W once, with no
+    scratch (``depth`` 0), in 64-column CTAs of one 32-row slab a warp:
+    the contraction is split into as few CTAs as hold FWD_SLABS slabs
+    each, none empty.  Above it, the quantize-once pre-pass and the wgmma
+    product, planned as the backward GEMMs (``bwd_gemm_plan``)."""
+    if M > FWD_SMALL_M:
+        return (False, *bwd_gemm_plan(M, N, K))
+    return True, 0, -(-K // (MX_BLOCK * FWD_SLABS))
 
 
 def bwd_gemm_plan(rows: int, cols: int, contraction: int) -> Tuple[int, int]:
@@ -247,12 +289,12 @@ def bwd_gemm_plan(rows: int, cols: int, contraction: int) -> Tuple[int, int]:
 
 
 def _bwd_scratch(rows: int, depth: int, device) -> torch.Tensor:
-    """A quantized operand of a backward GEMM, contraction-major bf16."""
+    """A quantized operand of a wgmma GEMM, contraction-major bf16."""
     return torch.empty((rows, depth), dtype=torch.bfloat16, device=device)
 
 
 def _in_place(t: torch.Tensor, fmt) -> bool:
-    """A raw bf16 operand already contraction-major goes to the backward
+    """A raw bf16 operand already contraction-major goes to the wgmma
     product as it lies when TMA can read its rows (16-byte aligned)."""
     return (fmt is None and t.dtype == torch.bfloat16
             and t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0)
@@ -287,7 +329,8 @@ def mx_matmul_dgrad(dy: torch.Tensor, w: torch.Tensor,
     _launch("mx_matmul_dgrad", "mx_matmul_dgrad", dy2.data_ptr(),
             w.data_ptr(), dx.data_ptr(), _ptr(work), _ptr(dyq), _ptr(wq), M,
             N, K, depth, splits, is_fp32, int(fmt_g is not None),
-            *_fmt_args(fmt_g), int(fmt_w is not None), *_fmt_args(fmt_w))
+            *_fmt_args(fmt_g, scale_mode), int(fmt_w is not None),
+            *_fmt_args(fmt_w, scale_mode))
     return dx.reshape(dy.shape[:-1] + (K,))
 
 
@@ -318,8 +361,8 @@ def mx_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
     _launch("mx_matmul_wgrad", "mx_matmul_wgrad", x.data_ptr(),
             dy.data_ptr(), dw.data_ptr(), _ptr(work), xq.data_ptr(),
             dyq.data_ptr(), T, K, N, depth, splits, is_fp32,
-            int(fmt_a is not None), *_fmt_args(fmt_a),
-            int(fmt_g is not None), *_fmt_args(fmt_g))
+            int(fmt_a is not None), *_fmt_args(fmt_a, scale_mode),
+            int(fmt_g is not None), *_fmt_args(fmt_g, scale_mode))
     return dw
 
 
@@ -353,7 +396,8 @@ def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch("mx_flash_attention", "mx_flash_fwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, G, Tq, Tk, d,
             dv, _KIND[spec.kind], spec.window, spec.q_offset, tile_k,
-            int(fmt is not None), *_fmt_args(fmt), 1.0 / math.sqrt(d))
+            int(fmt is not None), *_fmt_args(fmt, scale_mode),
+            1.0 / math.sqrt(d))
     return out, lse
 
 
@@ -403,7 +447,8 @@ def mx_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dvv.data_ptr(), BH, G, Tq, Tk, d, dv, _KIND[spec.kind],
             spec.window, spec.q_offset, int(odt == torch.float32),
-            int(fmt is not None), *_fmt_args(fmt), 1.0 / math.sqrt(d))
+            int(fmt is not None), *_fmt_args(fmt, scale_mode),
+            1.0 / math.sqrt(d))
     return dq, dk, dvv
 
 
@@ -446,7 +491,8 @@ def mx_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k4.data_ptr(), v4.data_ptr(), valid.data_ptr(), out.data_ptr(),
             BH, G, S, d, dv, H, k4.stride(0), k4.stride(1), k4.stride(2),
             v4.stride(0), v4.stride(1), v4.stride(2), valid.stride(0),
-            int(fmt is not None), *_fmt_args(fmt), 1.0 / math.sqrt(d))
+            int(fmt is not None), *_fmt_args(fmt, scale_mode),
+            1.0 / math.sqrt(d))
     return out
 
 
@@ -496,6 +542,7 @@ def mx_attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     _launch(name, "mx_attn_decode_paged", q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), page_table.data_ptr(), valid.data_ptr(),
             out.data_ptr(), B, H, G, P, ps, N, d, dv, *k_pool.stride()[:3],
-            *v_pool.stride()[:3], int(fmt is not None), *_fmt_args(fmt),
+            *v_pool.stride()[:3], int(fmt is not None),
+            *_fmt_args(fmt, scale_mode),
             1.0 / math.sqrt(d))
     return out

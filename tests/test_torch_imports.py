@@ -108,7 +108,7 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
 
 @pytest.mark.parametrize("name", ["mx_quant.cuh", "mx_quant.cu",
                                   "mx_matmul.cu", "mx_attention.cu",
-                                  "mx_gemm.cuh", "mx_gemm_sm90.cuh",
+                                  "mx_small_m.cuh", "mx_gemm_sm90.cuh",
                                   "mx_matmul_bwd.cu", "mx_attention_bwd.cu"])
 def test_cuda_sources_carry_their_note(name):
     text = (PORT / "kernels" / "csrc" / name).read_text()
@@ -120,8 +120,10 @@ def test_cuda_sources_carry_their_note(name):
 
 def test_kernel_table_names_existing_sources_and_pallas_functions():
     from repro_torch.kernels import ops
-    for name, (source, replaces) in ops.KERNELS.items():
-        assert (ROOT / source).is_file(), source
+    for name, (sources, replaces) in ops.KERNELS.items():
+        assert sources[0].endswith(".cu"), sources
+        for source in sources:
+            assert (ROOT / source).is_file(), source
         path, line = replaces.split(":")
         lines = (ROOT / path).read_text().splitlines()
         assert lines[int(line) - 1].startswith("def "), replaces

@@ -521,6 +521,61 @@ def test_recovery_end_to_end_through_run_loop(tmp_path):
     assert len(seg) == 1 and seg[0]["reason"] == "recovery"
 
 
+def test_bump_exponent_recovery_matches_reference(smoke, tmp_path):
+    """The paper's Fig. 7 scale bump through the run loop: a batch poisoned
+    at step 12 makes both Trainers roll back to the step-10 checkpoint and
+    switch to scale_mode "bump"; the port then trains on under it with
+    finite losses (on the card the kernels run the bump rule)."""
+    jcfg, cfg, jparams, tree = smoke
+
+    def batches(wrap):
+        armed = {"spike": True}
+
+        def batch_fn(step):
+            b = dict(_np_batch(step, cfg.vocab))
+            hit = step == 12 and armed.pop("spike", False)
+            b["poison"] = np.float32(1e6 if hit else 1.0)
+            return wrap(b)
+        return batch_fn
+
+    def jloss(p, b, q):
+        loss, m = jlm_loss(p, {"tokens": b["tokens"], "labels": b["labels"]},
+                           jcfg, q)
+        return loss * b["poison"], m
+
+    def loss(p, b, q):
+        out, m = lm_loss(p, {"tokens": b["tokens"], "labels": b["labels"]},
+                         cfg, q)
+        return out * b["poison"], m
+
+    kw = dict(total_steps=14, ckpt_every=5, peak_lr=1e-3, spike_factor=5.0,
+              auto_intervention="bump_exponent")
+    jt = JTrainer(jloss, jparams, jcore.preset("mxfp8_e4m3"),
+                  batches(lambda b: jax.tree.map(jnp.asarray, b)),
+                  tcfg=JTrainerConfig(ckpt_dir=str(tmp_path / "jax"), **kw))
+    jt.run(14)
+    tr = Trainer(loss, params_from_jax(tree, cfg, "cpu"),
+                 core.preset("mxfp8_e4m3"),
+                 batches(lambda b: {k: torch.from_numpy(np.asarray(v))
+                                    .long() if k != "poison" else
+                                    torch.tensor(v) for k, v in b.items()}),
+                 tcfg=TrainerConfig(ckpt_dir=str(tmp_path / "port"), **kw),
+                 ckpt_layout=lm_checkpoint_layout(cfg, "cpu"))
+    tr.run(14)
+    jrecs = [e for e in jt.events if e["event"] == "recovery"]
+    recs = tr.events.of_kind("recovery")
+    assert len(recs) == len(jrecs) == 1
+    assert recs[0]["rolled_back"] is jrecs[0]["rolled_back"] is True
+    assert recs[0]["step"] == jrecs[0]["step"] == 10
+    assert "spike@step12" in recs[0]["reason"]
+    assert tr.qcfg.describe() == jt.qcfg.describe()
+    assert tr.qcfg.scale_mode == jt.qcfg.scale_mode == "bump"
+    assert tr.qcfg == core.apply_intervention(core.preset("mxfp8_e4m3"),
+                                              "bump_exponent")
+    assert tr.step == jt.step == 14
+    assert all(np.isfinite([h["loss"] for h in tr.history]))
+
+
 def test_recovery_livelock_aborts_after_max_recoveries(tmp_path):
     cfg = get_config("olmo-paper", "smoke")
     tr = _poisoned(cfg, 12, once=False, total_steps=25,
