@@ -65,13 +65,23 @@ Phases, each of which raises on failure:
 The kernel phase also holds the dgrad, wgrad and flash dgrad kernels at
 the training shapes (4096 tokens; BH 64, T 512) against their plain
 versions, with planted faults that their checks reject (dgrad with W
-quantized along K, wgrad with x unquantized; three in the flash dgrad),
-dgrad and wgrad also at ragged sizes (contractions 48, 70 and 1000, raw
-gradients) and on the proxy's fp32 path, each called twice for equal
-bits, with the pre-pass's share of their time; and the paged decode
+quantized along K, wgrad with x unquantized; four in the flash dgrad,
+among them P and dS as one bf16 piece), dgrad and wgrad also at ragged
+sizes (contractions 48, 70 and 1000, raw gradients) and on the proxy's
+fp32 path, the flash dgrad also at its edges (FLASH_BWD_EDGES: ragged
+T 300, G 2, the window mask with q_offset, the full mask, d 128), each
+called twice for equal bits, with the pre-pass's share of the GEMMs'
+time; decode at its edges (DECODE_EDGES: a view that is not a multiple
+of the split's span, a span with no valid slot, G 4, S 2048, and the
+kernel's other paths: V read in place, d 256, unaligned rows), called
+twice for equal bits, with the split's planted faults (a split's partial
+left out of the combine, p over its own CTA's sum); and the paged decode
 kernel at the paged engine's shapes (6 rows, views of 256 and 512)
 against the slab decode kernel on the gathered view and its plain
-version, with planted page-table faults.
+version, with planted page-table faults.  [scale-modes] runs the flash
+dgrad's and decode's edges under "bump" and "adaptive" too, and holds the
+flash dgrad at d 128 with q and k at std 1 (logits of a few hundred)
+against the fp64 grads beside its plain version.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
@@ -175,6 +185,18 @@ def bound(bytes_moved: float, flops: float):
     return (max(t_b, t_f), "bytes" if t_b >= t_f else "operations")
 
 
+def decode_bound(valid, H: int, G: int, d: int, dv: int):
+    """bound() of a decode over a (B, S) ``valid`` mask with H kv heads:
+    the bytes of the K rows of the valid slots only (a masked slot's score
+    is dropped whatever its K row holds), the V rows of every slot (v is
+    cast along S over every slot), q, out and the mask; the operations of
+    the QK and PV products over the valid slots."""
+    B, S = valid.shape
+    n_valid = int(valid.sum())
+    return bound(2 * H * (n_valid * d + B * S * dv + B * G * (d + dv))
+                 + B * S, 2 * H * G * n_valid * (d + dv))
+
+
 def attn_floor(v, n_terms: int) -> float:
     """Absolute floor of the attention check: the fp32 accumulation-order
     bound of a convex combination of ``n_terms`` values of v."""
@@ -253,6 +275,105 @@ def planted_decode(q, kc, vc, valid, fmt, fault):
         pq = Q(p, -1) / l
     vq = Q(vf, -1 if fault == "v quantized along d" else -2)
     return torch.einsum("bgs,bsd->bgd", pq, vq).to(q.dtype)
+
+
+# Faults of the decode kernels' split over a cluster (ops.decode_plan),
+# planted in split_decode.
+SPLIT_FAULTS = ("one split's partial left out of the combine",
+                "p divided by the CTA's own sum")
+
+
+def split_decode(q, kc, vc, valid, fmt, fault=None, scale_mode="floor"):
+    """The decode kernels' split in plain PyTorch, against a (B, S, H, d)
+    cache, with one planted ``fault`` (None: none): the view cut into the
+    plan's spans (the last padded with invalid zero slots), each split's
+    max and sum, the cluster's max and its sum in rank order, p over that
+    sum cast along S per 32-block inside each span, v cast along S over
+    every slot, each split's partial PV, and the partials summed in rank
+    order."""
+    import torch
+    from repro_torch.core import quantize_mx
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import NEG_INF, fold_cache
+
+    def Q(x, axis):
+        return quantize_mx(x, fmt, axis=axis, scale_mode=scale_mode)
+    S = kc.shape[1]
+    splits, span = ops.decode_plan(S)
+    pad = splits * span - S
+    kf, vf = fold_cache(kc).float(), fold_cache(vc).float()
+    ok = torch.repeat_interleave(valid, kc.shape[2], dim=0)
+    s = torch.einsum("bgd,bsd->bgs", Q(q.float(), -1), Q(kf, -1))
+    s = torch.where(ok[:, None], s * (1.0 / math.sqrt(q.shape[-1])), NEG_INF)
+    s = torch.nn.functional.pad(s, (0, pad), value=NEG_INF)
+    ok = torch.nn.functional.pad(ok, (0, pad))[:, None].unflatten(
+        -1, (splits, span))
+    s = s.unflatten(-1, (splits, span))                    # (BH, G, r, span)
+    m = s.amax(-1).amax(-1, keepdim=True)[..., None]
+    p = torch.where(ok, torch.exp(s - m), 0.0)
+    l_r = p.sum(-1)
+    total = torch.zeros_like(l_r[..., 0])
+    for r in range(splits):
+        total = total + l_r[..., r]
+    if fault == "p divided by the CTA's own sum":
+        pr = p / l_r.clamp(min=1e-30)[..., None]
+    else:
+        pr = p / total.clamp(min=1e-30)[..., None, None]
+    prq = Q(pr, -1)
+    vq = Q(torch.nn.functional.pad(vf, (0, 0, 0, pad)), -2)
+    part = torch.einsum("bgrs,brsd->bgrd", prq, vq.unflatten(1, (splits,
+                                                                  span)))
+    o = torch.zeros_like(part[:, :, 0])
+    for r in range(splits):
+        if fault == "one split's partial left out of the combine" and r == 1:
+            continue
+        o = o + part[:, :, r]
+    return o.to(q.dtype)
+
+
+# Edges of the decode kernels beside the serve shape: (label, B, H, G, S,
+# a hole, d, dv): S 300 ends inside the plan's last span; the hole makes
+# the span [64, 128) invalid in every row; the last three take the
+# kernel's other paths: V rows read in place (their span does not fit a
+# CTA's shared memory), a head dim above 128 (a lane walks 256-wide
+# segments), rows that are not 16-byte aligned (element loads).
+DECODE_EDGES = (("view not a multiple of the span", 4, 8, 1, 300, False,
+                 64, 64),
+                ("a span with no valid slot", 4, 8, 1, 512, True, 64, 64),
+                ("G 4", 4, 2, 4, 512, False, 64, 64),
+                ("long view", 4, 8, 1, 2048, False, 64, 64),
+                ("long view, V in place", 1, 2, 1, 9000, False, 64, 128),
+                ("head dim 256", 2, 2, 2, 300, False, 256, 64),
+                ("head dims 100", 2, 2, 1, 300, False, 100, 100))
+
+
+def decode_valid(B, S, hole, device):
+    """(B, S) validity of rows valid up to positions spread over the view
+    (the first at a fifth of it); ``hole`` makes slots [64, 128) invalid
+    in every row."""
+    import torch
+    pos = torch.tensor([S // 5, S // 2, 3 * S // 4, S - 1][:B],
+                       device=device)
+    valid = torch.arange(S, device=device)[None] <= pos[:, None]
+    if hole:
+        valid[:, 64:128] = False
+    return valid
+
+
+def decode_case(q, kc, vc, valid, fmt, mode="floor"):
+    """The decode kernel against its plain version (attn_check) and against
+    itself on a second call.  Returns (ok, worst, max_abs_err, replay,
+    the plain output)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    o = ops.mx_attention_decode(q, kc, vc, valid, fmt, scale_mode=mode)
+    replay = torch.equal(o, ops.mx_attention_decode(q, kc, vc, valid, fmt,
+                                                    scale_mode=mode))
+    orf = ref.mx_attention_decode_ref(q, kc, vc, valid, fmt,
+                                      scale_mode=mode)
+    ok, worst = attn_check(o, orf, attn_floor(vc, kc.shape[1]))
+    return (ok and replay, worst, (o.float() - orf.float()).abs().max().item(),
+            replay, orf)
 
 
 def check_controls(what, check, planted, faults):
@@ -376,21 +497,26 @@ def phase_kernels():
 
     # 4. decode: max_batch 4 x 8 kv heads against a 512-slot cache; the
     # invalid slots hold random K/V, as stale rows and prefill pads do.
+    # Row 0 (pos 100) leaves six of the plan's eight spans without a valid
+    # slot.
     B, H, S = 4, 8, 512
     for fmt, primary in ((E4M3, True), (None, False)):
         q = rnd(B * H, 1, 64)
         kc, vc = rnd(B, S, H, 64), rnd(B, S, H, 64)
         pos = torch.tensor([100, 257, 400, 511], device=dev)
         valid = torch.arange(S, device=dev)[None] <= pos[:, None]
-        o = ops.mx_attention_decode(q, kc, vc, valid, fmt)
-        orf = ref.mx_attention_decode_ref(q, kc, vc, valid, fmt)
+        ok, worst, err, replay, orf = decode_case(q, kc, vc, valid, fmt)
         floor = attn_floor(vc, S)
-        ok, worst = attn_check(o, orf, floor)
         if fmt is not None:
             check_controls("decode", lambda got: attn_check(got, orf, floor),
                            lambda fault: planted_decode(q, kc, vc, valid,
                                                         fmt, fault),
                            DECODE_FAULTS)
+            check_controls("decode split", lambda got: attn_check(got, orf,
+                                                                  floor),
+                           lambda fault: split_decode(q, kc, vc, valid, fmt,
+                                                      fault),
+                           SPLIT_FAULTS)
         lib = None
         if fmt is None:
             qs = q.view(B, H, 1, 64)
@@ -400,12 +526,31 @@ def phase_kernels():
                 qs, ks, vs, attn_mask=mask), 50, flush)
         record("mx_attention_decode",
                f"decode B4 H8 S512 d64 {'e4m3' if fmt else 'bf16'} "
-               f"(worst err/tol {worst:.3f})", primary,
-               (o.float() - orf.float()).abs().max().item(), ok,
+               f"(plan {ops.decode_plan(S)}; worst err/tol {worst:.3f}, "
+               f"replay equal {replay})", primary, err, ok,
                time_ms(lambda: ops.mx_attention_decode(q, kc, vc, valid, fmt), 50, flush),
                time_ms(lambda: ref.mx_attention_decode_ref(q, kc, vc, valid, fmt), 10, flush),
-               lib, bound(2 * (2 * B * S * H * 64 + 2 * B * H * 64) + B * S,
-                          4 * B * H * S * 64))
+               lib, decode_bound(valid, H, 1, 64, 64))
+    # The decode kernel's edges: a view that is not a multiple of the span,
+    # a span invalid in every row, G 4, and a long view (S 2048); each
+    # checked and replayed, the split's planted faults at S 300.
+    for label, B, H, G, S, hole, d, dv in DECODE_EDGES:
+        q, kc, vc = rnd(B * H, G, d), rnd(B, S, H, d), rnd(B, S, H, dv)
+        valid = decode_valid(B, S, hole, dev)
+        ok, worst, err, replay, orf = decode_case(q, kc, vc, valid, E4M3)
+        if S % ops.decode_plan(S)[1]:
+            floor = attn_floor(vc, S)
+            check_controls(f"decode split {label}",
+                           lambda got: attn_check(got, orf, floor),
+                           lambda fault: split_decode(q, kc, vc, valid, E4M3,
+                                                      fault),
+                           SPLIT_FAULTS)
+        record("mx_attention_decode",
+               f"decode edge {label}: B{B} H{H} G{G} S{S} d{d} dv{dv} e4m3 "
+               f"(plan {ops.decode_plan(S)}; worst err/tol {worst:.3f}, "
+               f"replay equal {replay})", False, err, ok,
+               time_ms(lambda: ops.mx_attention_decode(q, kc, vc, valid, E4M3), 20, flush),
+               None, None, decode_bound(valid, H, G, d, dv))
     paged_kernels(record, flush)
     training_kernels(rnd, record, flush)
     return rows
@@ -561,11 +706,17 @@ def paged_kernels(record, flush, dev: str = "cuda"):
             if accepted:
                 raise AssertionError(f"paged decode: the checks accept the "
                                      f"planted fault {fault!r}")
-        # Bytes the function must move: the K/V rows of the distinct mapped
-        # pages, q, out, the table and the mask; operations: the QK and PV
-        # products over the valid positions.
+        # Bytes the function must move: the K rows of the distinct pool
+        # slots that some row holds valid (a masked slot's score is dropped
+        # whatever its K row holds), the V rows of the distinct mapped
+        # pages (v is cast along S over every slot), q, out, the table and
+        # the mask; operations: the QK and PV products over the valid
+        # positions.
         mapped = torch.unique(pt[pt >= 0]).numel()
         n_valid = int(valid.sum())
+        slot = (pt.long().repeat_interleave(ps, dim=1) * ps
+                + torch.arange(S, device=pt.device) % ps)
+        k_slots = torch.unique(slot[valid]).numel()
         d = q.shape[-1]
         record("mx_attention_decode_paged",
                f"paged decode B6 H8 P{P} ps{ps} (view {S}) d64 "
@@ -578,9 +729,9 @@ def paged_kernels(record, flush, dev: str = "cuda"):
                    q, kp, vp, pt, valid, fmt), 50, flush),
                time_ms(lambda: ref.mx_attention_decode_paged_ref(
                    q, kp, vp, pt, valid, fmt), 10, flush),
-               None, bound(2 * 2 * mapped * ps * H * d + 2 * 2 * q.numel()
-                           + 4 * pt.numel() + valid.numel(),
-                           4 * n_valid * H * d))
+               None, bound(2 * (k_slots + mapped * ps) * H * d
+                           + 2 * 2 * q.numel() + 4 * pt.numel()
+                           + valid.numel(), 4 * n_valid * H * d))
 
 
 # ---------------------------------------------------------------------------
@@ -604,31 +755,42 @@ FLASH_BWD_EPS = 256 * 2.0 ** -24
 # Faults a flash dgrad could plant.  `out` is bf16 on the path (the forward
 # returns q.dtype, as the reference), so rounding it again is the
 # identity: the third fault rounds delta itself to bf16, the place where
-# taking delta at bf16 precision would show.
+# taking delta at bf16 precision would show.  The fourth is the tensor-core
+# kernel's own: P and dS taken as one bf16 piece in the gradient products
+# (the kernel splits each into three, hi + mid + lo).
 FLASH_BWD_FAULTS = ("p from unquantized scores",
                     "quantized operands in the gradient products",
-                    "delta rounded to bf16")
+                    "delta rounded to bf16",
+                    "P and dS as one bf16 piece")
+
+
+def attn_valid(spec, Tq: int, Tk: int, device):
+    """(Tq, Tk) validity of an AttnSpec mask (causal, full, window, with
+    q_offset), as ref.attn_tile_mask over one tile."""
+    from repro_torch.kernels import ref
+    return ref.attn_tile_mask(spec, 0, 0, Tq, Tk, Tk, device)
 
 
 def flash_bwd_dense(q, k, v, dout, out, lse, fmt, fault=None,
-                    scale_mode="floor"):
-    """Untiled causal flash dgrad in fp64 with one planted ``fault`` (None:
-    none).  Returns ((dq, dk, dv), (bound_q, bound_k, bound_v)) in fp64;
-    the bounds are those of FLASH_BWD_EPS."""
+                    scale_mode="floor", spec=None):
+    """Untiled flash dgrad in fp64 under ``spec`` (default causal) with one
+    planted ``fault`` (None: none), any G, Tq and Tk.  Returns ((dq, dk,
+    dv), (bound_q, bound_k, bound_v)) in fp64; the bounds are those of
+    FLASH_BWD_EPS."""
     import torch
-    from repro_torch.core import quantize_mx
+    from repro_torch.core import AttnSpec, quantize_mx
     f64 = torch.float64
 
     def Q(x, axis):
         return quantize_mx(x.float(), fmt, axis=axis,
                            scale_mode=scale_mode).to(f64)
-    T, d = q.shape[2], q.shape[-1]
+    Tq, Tk, d = q.shape[2], k.shape[1], q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     qq, kk = Q(q, -1), Q(k, -1)
     if fault == "p from unquantized scores":
         qq, kk = q.to(f64), k.to(f64)
     s = torch.einsum("bgqd,bkd->bgqk", qq, kk) * scale
-    valid = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    valid = attn_valid(spec or AttnSpec(), Tq, Tk, q.device)
     p = torch.where(valid, torch.exp(torch.where(valid, s, -1e30)
                                      - lse.to(f64)[..., None]), 0.0)
     do, vv, kr, qr = dout.to(f64), v.to(f64), k.to(f64), q.to(f64)
@@ -641,8 +803,11 @@ def flash_bwd_dense(q, k, v, dout, out, lse, fmt, fault=None,
         pd = Q(p, -2)
     dp = torch.einsum("bgqd,bkd->bgqk", do, vv)
     ds = p * (dp - delta[..., None]) * scale
-    grads = (torch.einsum("bgqk,bkd->bgqd", ds, kr),
-             torch.einsum("bgqk,bgqd->bkd", ds, qr),
+    dsd = ds
+    if fault == "P and dS as one bf16 piece":
+        pd, dsd = (x.to(torch.bfloat16).to(f64) for x in (p, ds))
+    grads = (torch.einsum("bgqk,bkd->bgqd", dsd, kr),
+             torch.einsum("bgqk,bgqd->bkd", dsd, qr),
              torch.einsum("bgqk,bgqd->bkd", pd, do))
     D = p * (torch.einsum("bgqd,bkd->bgqk", do.abs(), v.to(f64).abs())
              + delta.abs()[..., None]) * scale
@@ -836,7 +1001,7 @@ def mode_input(shape, axis, fmt, g, std=1.0, dtype=None, edges=False):
         flat[0, 5] = flat[0, 5] * 2.0 ** -122     # exponent clipped at -126
         flat[0, 6] = 1.9 * 2.0 ** 126             # near the top of fp32
         xb = flat.reshape(xb.shape)
-    x[..., :n] = xb.flatten(-2)
+    x[..., :n] = xb.flatten(-2).clone()   # xb may be a view of x
     return torch.movedim(x, -1, axis).to(dtype)
 
 
@@ -979,29 +1144,62 @@ def phase_scale_modes():
         q, k, v = mi((BH, 1, T, 64), -1), mi((BH, T, 64), -1), mi(
             (BH, T, 64), -2)
         dout = mi((BH, 1, T, 64), -1, 1e-2)
-        out, lse = ops.mx_flash_attention(q, k, v, fmt, spec,
-                                          scale_mode=mode)
-        args = (q, k, v, dout, out, lse, fmt, spec)
-        got = ops.mx_flash_attention_bwd(*args, scale_mode=mode,
-                                         out_dtype=torch.float32)
-        want = ref.mx_flash_attention_bwd_ref(*args, scale_mode=mode,
-                                              out_dtype=torch.float32)
-        _, bounds = flash_bwd_dense(q, k, v, dout, out, lse, fmt,
-                                    scale_mode=mode)
-        ok, worst = flash_bwd_check(got, want, bounds)
-        print(f"[scale-modes] {'ok  ' if ok else 'FAIL'} flash dgrad BH{BH} "
-              f"T{T} {mode}: worst err/tol {worst:.3f}", flush=True)
-        if not ok:
+        c = flash_bwd_case(q, k, v, dout, fmt, spec, mode)
+        print(f"[scale-modes] {'ok  ' if c['ok'] else 'FAIL'} flash dgrad "
+              f"BH{BH} T{T} {mode}: worst err/tol {c['worst']:.3f}, replay "
+              f"equal {c['replay']}", flush=True)
+        if not c["ok"]:
             raise AssertionError(f"flash dgrad {mode} disagrees")
+        for label, BH, G, Tq, Tk, d, kw in FLASH_BWD_EDGES:
+            # From d 128 on, a row of q and k holds a tight block (32
+            # values near 1.96 * 2^k): at std 1 the logits reach a few
+            # hundred, and their fp32 rounding alone puts the plain
+            # version itself outside FLASH_BWD_EPS of the fp64 product
+            # (tests/test_torch_attn_sm90.py).  At std 2^-2 q and k draw
+            # the same kinds of blocks scaled by 2^-2 (the cast commutes
+            # with a power of two), with logits below ~20.  The std 1
+            # inputs are then held against the fp64 grads beside the plain
+            # version (flash_bwd_fp64_case).
+            std = 0.25 if d > 64 else 1.0
+            q, k, v = (mi((BH, G, Tq, d), -1, std), mi((BH, Tk, d), -1, std),
+                       mi((BH, Tk, d), -2))
+            dout = mi((BH, G, Tq, d), -1, 1e-2)
+            c = flash_bwd_case(q, k, v, dout, fmt, AttnSpec(**kw), mode)
+            print(f"[scale-modes] {'ok  ' if c['ok'] else 'FAIL'} flash "
+                  f"dgrad {label} {mode}: worst err/tol {c['worst']:.3f}, "
+                  f"replay equal {c['replay']}", flush=True)
+            if not c["ok"]:
+                raise AssertionError(f"flash dgrad {label} {mode} disagrees")
+            if d > 64:   # and at std 1, against the fp64 grads
+                q, k = mi((BH, G, Tq, d), -1), mi((BH, Tk, d), -1)
+                ok, worst, pw, fw, rep = flash_bwd_fp64_case(
+                    q, k, v, dout, fmt, AttnSpec(**kw), mode)
+                print(f"[scale-modes] {'ok  ' if ok else 'FAIL'} flash "
+                      f"dgrad {label} std 1 {mode} against fp64: kernel "
+                      f"worst err/tol {worst:.3f}, plain version {pw:.3f} "
+                      f"(limit max(1, 2x plain)), "
+                      f"{FLASH_BWD_FAULTS[-1]!r} {fw:.2f} "
+                      f"({'rejected' if fw > max(1.0, 2 * pw) else 'ACCEPTED'}"
+                      f"), replay equal {rep}", flush=True)
+                if not ok:
+                    raise AssertionError(f"flash dgrad {label} std 1 {mode} "
+                                         "against fp64 disagrees")
         B, H, S = 4, 8, 512
         qd = mi((B * H, 1, 64), -1)
         kc, vc = mi((B, S, H, 64), -1), mi((B, S, H, 64), 1)
         pos = torch.tensor([100, 257, 400, 511], device=dev)
         valid = torch.arange(S, device=dev)[None] <= pos[:, None]
-        o = ops.mx_attention_decode(qd, kc, vc, valid, fmt, scale_mode=mode)
-        orf = ref.mx_attention_decode_ref(qd, kc, vc, valid, fmt,
-                                          scale_mode=mode)
-        ok, worst = attn_check(o, orf, attn_floor(vc, S))
+        ok, worst = decode_case(qd, kc, vc, valid, fmt, mode)[:2]
+        for label, B, H, G, S, hole, d, dv in DECODE_EDGES:
+            qe, ke, ve = (mi((B * H, G, d), -1), mi((B, S, H, d), -1),
+                          mi((B, S, H, dv), 1))
+            vale = decode_valid(B, S, hole, dev)
+            ok_e, worst_e = decode_case(qe, ke, ve, vale, fmt, mode)[:2]
+            print(f"[scale-modes] {'ok  ' if ok_e else 'FAIL'} decode "
+                  f"{label} (B{B} H{H} G{G} S{S}) {mode}: worst err/tol "
+                  f"{worst_e:.3f}", flush=True)
+            if not ok_e:
+                raise AssertionError(f"decode {label} {mode} disagrees")
         qp, kp, vp, pt, validp, _ = paged_case(16, dev)
         op = ops.mx_attention_decode_paged(qp, kp, vp, pt, validp, fmt,
                                            scale_mode=mode)
@@ -1175,28 +1373,18 @@ def training_kernels(rnd, record, flush):
     for fmt, primary in ((E4M3, True), (None, False)):
         q, k, v = rnd(BH, 1, T, d), rnd(BH, T, d), rnd(BH, T, d)
         dout = rnd(BH, 1, T, d, std=1e-2)
-        out, lse = ops.mx_flash_attention(q, k, v, fmt, spec)
-        args = (q, k, v, dout, out, lse, fmt, spec)
-        got = ops.mx_flash_attention_bwd(*args, out_dtype=torch.float32)
-        gotb = ops.mx_flash_attention_bwd(*args)
-        want = ref.mx_flash_attention_bwd_ref(*args,
-                                              out_dtype=torch.float32)
-        _, bounds = flash_bwd_dense(q, k, v, dout, out, lse, fmt)
-        ok, worst = flash_bwd_check(got, want, bounds)
-        # the bf16 grads are the fp32 ones rounded once
-        ok = ok and all(torch.equal(b, g.to(torch.bfloat16))
-                        for b, g in zip(gotb, got))
+        c = flash_bwd_case(q, k, v, dout, fmt, spec)
+        args, want, bounds = c["args"], c["want"], c["bounds"]
         mode = "e4m3" if fmt else "bf16"
         control_ok, control = flash_bwd_check(
-            flash_bwd_dense(q, k, v, dout, out, lse, fmt)[0], want, bounds)
+            flash_bwd_dense(*args[:7])[0], want, bounds)
         if not control_ok:
             raise AssertionError(f"flash dgrad {mode}: fault-free control "
                                  f"fails the check (worst {control})")
         if fmt is not None:
             for fault in FLASH_BWD_FAULTS:
                 accepted, w_ = flash_bwd_check(
-                    flash_bwd_dense(q, k, v, dout, out, lse, fmt, fault)[0],
-                    want, bounds)
+                    flash_bwd_dense(*args[:7], fault)[0], want, bounds)
                 print(f"[controls] flash dgrad: {fault!r} worst err/tol "
                       f"{w_:.2f} ({'ACCEPTED' if accepted else 'rejected'})",
                       flush=True)
@@ -1212,14 +1400,107 @@ def training_kernels(rnd, record, flush):
                 o, (qs, ks, vs), dout[:, 0], retain_graph=True), 20, flush)
         record("mx_flash_attention_bwd",
                f"train BH{BH} G1 T{T} d{d} causal {mode} (worst err/tol "
-               f"{worst:.3f}, control {control:.3f})", primary,
-               max((a - b).abs().max().item() for a, b in zip(got, want)),
-               ok,
+               f"{c['worst']:.3f}, control {control:.3f}, replay equal "
+               f"{c['replay']})", primary, c["err"], c["ok"],
                time_ms(lambda: ops.mx_flash_attention_bwd(*args), 10, flush),
                time_ms(lambda: ref.mx_flash_attention_bwd_ref(*args), 3,
                        flush),
                lib, bound(2 * 8 * BH * T * d + 4 * BH * T,
                           10 * d * n_scores))
+    # Its edges, each with the new planted fault rejected.
+    for label, BH, G, Tq, Tk, d, kw in FLASH_BWD_EDGES:
+        spec = AttnSpec(**kw)
+        q, k, v = rnd(BH, G, Tq, d), rnd(BH, Tk, d), rnd(BH, Tk, d)
+        dout = rnd(BH, G, Tq, d, std=1e-2)
+        c = flash_bwd_case(q, k, v, dout, E4M3, spec)
+        accepted, w_ = flash_bwd_check(flash_bwd_dense(
+            *c["args"][:7], FLASH_BWD_FAULTS[-1], spec=spec)[0], c["want"],
+            c["bounds"])
+        print(f"[controls] flash dgrad {label}: {FLASH_BWD_FAULTS[-1]!r} "
+              f"worst err/tol {w_:.2f} "
+              f"({'ACCEPTED' if accepted else 'rejected'})", flush=True)
+        if accepted:
+            raise AssertionError(f"flash dgrad {label}: the check accepts "
+                                 f"the planted fault {FLASH_BWD_FAULTS[-1]!r}")
+        n_valid = int(attn_valid(spec, Tq, Tk, q.device).sum()) * BH * G
+        record("mx_flash_attention_bwd",
+               f"edge {label}: BH{BH} G{G} Tq{Tq} Tk{Tk} d{d} e4m3 (worst "
+               f"err/tol {c['worst']:.3f}, replay equal {c['replay']})",
+               False, c["err"], c["ok"],
+               time_ms(lambda: ops.mx_flash_attention_bwd(*c["args"]), 10,
+                       flush), None, None,
+               bound(2 * 4 * d * (BH * G * Tq + BH * Tk) + 4 * BH * G * Tq,
+                     10 * d * n_valid))
+
+
+# Edges of the flash dgrad kernel beside the training shape: (label, BH, G,
+# Tq, Tk, d, AttnSpec arguments).  T 300 is ragged against the kernel's
+# 64-row tiles; d 128 takes its 32-row blocks.
+FLASH_BWD_EDGES = (
+    ("ragged T 300", 16, 1, 300, 300, 64, {}),
+    ("G 2", 16, 2, 512, 512, 64, {}),
+    ("window 128 with q_offset 64", 16, 2, 256, 320, 64,
+     dict(kind="window", window=128, q_offset=64)),
+    ("full mask", 16, 1, 300, 200, 64, dict(kind="full")),
+    ("d 128", 16, 1, 256, 256, 128, {}))
+
+
+def flash_bwd_case(q, k, v, dout, fmt, spec, mode="floor"):
+    """The flash dgrad kernel on one case: its fp32 grads against the plain
+    version (flash_bwd_check, the dense fp64 bounds), its bf16 grads
+    against the fp32 ones rounded once, and a second call for equal bits.
+    Returns a dict: ok, worst, err, replay, args, want, bounds."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out, lse = ops.mx_flash_attention(q, k, v, fmt, spec, scale_mode=mode)
+    args = (q, k, v, dout, out, lse, fmt, spec)
+
+    def fn(dtype=torch.float32):
+        return ops.mx_flash_attention_bwd(*args, scale_mode=mode,
+                                          out_dtype=dtype)
+    got, gotb = fn(), fn(torch.bfloat16)
+    replay = all(torch.equal(a, b) for a, b in zip(got, fn()))
+    want = ref.mx_flash_attention_bwd_ref(*args, scale_mode=mode,
+                                          out_dtype=torch.float32)
+    _, bounds = flash_bwd_dense(q, k, v, dout, out, lse, fmt,
+                                scale_mode=mode, spec=spec)
+    ok, worst = flash_bwd_check(got, want, bounds)
+    # the bf16 grads are the fp32 ones rounded once
+    rounded = all(torch.equal(b, g.to(torch.bfloat16))
+                  for b, g in zip(gotb, got))
+    return {"ok": ok and rounded and replay, "worst": worst,
+            "err": max((a - b).abs().max().item() for a, b in zip(got, want)),
+            "replay": replay, "args": args, "want": want, "bounds": bounds}
+
+
+def flash_bwd_fp64_case(q, k, v, dout, fmt, spec, mode):
+    """The flash dgrad kernel and its plain version, each held against the
+    fp64 dense grads (flash_bwd_check's measure), for inputs whose logits
+    reach a few hundred: there the scores' fp32 rounding alone can put the
+    plain version itself outside FLASH_BWD_EPS of fp64, so the kernel must
+    stay within twice the plain version's reading (or within
+    FLASH_BWD_EPS), call twice for equal bits, and "P and dS as one bf16
+    piece" must exceed that limit.  Returns (ok, kernel worst, plain
+    worst, planted worst, replay)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    out, lse = ops.mx_flash_attention(q, k, v, fmt, spec, scale_mode=mode)
+    args = (q, k, v, dout, out, lse, fmt, spec)
+
+    def fn():
+        return ops.mx_flash_attention_bwd(*args, scale_mode=mode,
+                                          out_dtype=torch.float32)
+    got = fn()
+    replay = all(torch.equal(a, b) for a, b in zip(got, fn()))
+    plain = ref.mx_flash_attention_bwd_ref(*args, scale_mode=mode,
+                                           out_dtype=torch.float32)
+    exact, bounds = flash_bwd_dense(*args[:7], scale_mode=mode, spec=spec)
+    planted = flash_bwd_dense(*args[:7], FLASH_BWD_FAULTS[-1],
+                              scale_mode=mode, spec=spec)[0]
+    kw, pw, fw = (flash_bwd_check(x, exact, bounds)[1]
+                  for x in (got, plain, planted))
+    limit = max(1.0, 2.0 * pw)
+    return kw <= limit < fw and replay, kw, pw, fw, replay
 
 
 def _fresh(params, device):

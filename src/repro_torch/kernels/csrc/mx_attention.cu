@@ -9,9 +9,15 @@
 //   :384-404).
 // Bound: all three are memory- and latency-bound at the serve path's
 //   shapes.  Prefill attention at d = 64 does ~4 d operations per score,
-//   far below the H100's ~295 operations per byte; decode reads the KV
-//   cache once.  Paged decode must move the K/V rows of the mapped pages,
-//   q, out, the page table and the validity mask once, over 3.35 TB/s.
+//   far below the H100's ~295 operations per byte.  Decode must move the
+//   K rows of the valid slots (a masked slot's score is dropped whatever
+//   its K row holds), the V rows of every slot (v is cast along S over
+//   all of them), q, out and the validity mask once (3.4 MB at B 4, H 8,
+//   S 512 with the serve path's positions: 1.02 µs over 3.35 TB/s); paged
+//   decode the same, with V over the mapped pages, and the page table.
+//   This kernel still loads and casts the K rows of masked slots: reading
+//   the mask first would add a dependent round trip.  Both are held back
+//   by latency: a call is a few dependent round trips.
 // Design:
 //   * Flash forward.  In MX mode the unnormalized p is quantized after the
 //     rescale by the running max over the whole JAX kv tile
@@ -29,28 +35,48 @@
 //     query rows of one (bh, g): 4 warps x 4 rows, lane = kv row in a
 //     block.  Out is acc / max(l, 1e-30) in bf16; lse = m + log(max(l,
 //     1e-30)) in fp32.  In bf16 mode (no format) p stays fp32 for PV.
-//   * Decode.  One CTA per (batch, kv head).  The cache is read in its
-//     (B, S, Hkv, d) layout through strides, so no per-step transposed copy
-//     of the cache is made.  The S scores live in shared memory; the
-//     softmax is explicit, the *normalized* p is quantized along S and v
-//     along S over every slot, valid or not (the contents of invalid slots
-//     therefore matter, as in the reference).  For the PV product a lane
-//     owns a value column and walks the 32 rows of a block, so the block
-//     max of v needs no shuffle.
+//   * Decode, split over a thread-block cluster.  The *normalized* p is
+//     quantized along S (32-blocks) and v along S over every slot, valid
+//     or not, so the view's max and sum must be known before any p is
+//     cast.  The wrapper plans the split from S alone (ops.decode_plan:
+//     `splits` <= 8 CTAs of `span` slots, span a multiple of 32, so no
+//     32-block of p or v straddles two CTAs, and a row's result does not
+//     depend on the batch it shares).  Grid (B*H, splits), one cluster of
+//     `splits` CTAs per (row, kv head), launched with cudaLaunchKernelEx.
+//     Each CTA reads its span of the cache in its (B, S, Hkv, d) layout
+//     through strides (no transposed copy): it starts the copy of its V
+//     rows into shared memory (cp.async; a span too long to stage reads
+//     them in place later), issues the 16-byte loads of its K rows before
+//     using any, casts q once and each K row along d
+//     (`mx_quad_quant`: 8 elements a lane, the warp cast's sums in the
+//     warp cast's order), and forms the scores of all G query heads at
+//     once.  The combine goes through distributed shared memory in rank
+//     order: the cluster's max, then p = exp(s - max) and the cluster's
+//     sum; then every CTA divides its p by that sum, casts its p blocks
+//     and its v blocks along S (four lanes a value column, 8 slots a
+//     lane, as K) and forms its partial PV in fp32, and rank 0
+//     sums the partials in rank order and stores bf16.  A span with no
+//     valid slot gives max -1e30 and sum 0.  No atomics: a second call
+//     gives equal bits.
 //   * Paged decode is the same kernel (template flag PAGED) with another
 //     row address: view position s of row b lives at offset s % ps of
 //     physical page pt[b * P + s / ps] of the (N, ps, Hkv, d) pool, read
-//     through strides; an entry outside [0, N) is clamped, so an unmapped
-//     -1 reads page 0 exactly as the gather of the plain version does (the
-//     mask hides it, and v's 32-blocks never straddle a page because ps is
-//     a multiple of 32).  Every multiply, add and reduction is the slab
-//     kernel's, in its order, so the result is bitwise that of the slab
+//     through strides by the CTA that needs the row; an entry outside
+//     [0, N) is clamped, so an unmapped -1 reads page 0 exactly as the
+//     gather of the plain version does (the mask hides it, and v's
+//     32-blocks never straddle a page because ps is a multiple of 32).
+//     Every multiply, add and reduction is the slab kernel's, in its
+//     order, with the same plan, so the result is bitwise that of the slab
 //     kernel on the gathered (B, P*ps, Hkv, d) view.  The TPU kernel's
 //     VMEM staging of the gathered view is not carried over: the rows are
 //     read in place.
+#include <cooperative_groups.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "mx_quant.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 constexpr int MAXD = 128;
@@ -58,7 +84,9 @@ constexpr int FA_WARPS = 4;
 constexpr int FA_RPW = 4;                    // query rows per warp
 constexpr int FA_ROWS = FA_WARPS * FA_RPW;   // query rows per CTA
 constexpr int MAXG = 8;
-constexpr int DEC_WARPS = 16;
+constexpr int DEC_THREADS = 128;   // a decode CTA
+constexpr int DEC_KB = 4;          // K loads a thread keeps in flight
+constexpr int DEC_MAX_SMEM = 227 * 1024;   // a CTA's opt-in limit
 constexpr float NEG_INF = -1e30f;
 enum { KIND_CAUSAL = 0, KIND_FULL = 1, KIND_WINDOW = 2 };
 }  // namespace
@@ -259,21 +287,73 @@ __device__ __forceinline__ long long dec_row(const DecRows& r, long long sb,
   return b * sb + (long long)s * ss + h * sh;
 }
 
-template <int DVL, bool PAGED>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
+__device__ __forceinline__ void dec_cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// x[i] of every rank's shared memory (ranks below `splits`), all loads
+// issued before any is used.
+__device__ __forceinline__ void dec_gather(cg::cluster_group& cluster,
+                                           float* x, int i, int splits,
+                                           float (&vals)[8]) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    vals[r] = r < splits ? cluster.map_shared_rank(x, r)[i] : 0.f;
+}
+
+// Elements [c, c + 8) of a bf16 row of width d, zeros past d: one 16-byte
+// load when vec (d a multiple of 8, 16-byte aligned rows).
+__device__ __forceinline__ uint4 dec_chunk(const __nv_bfloat16* row, int c,
+                                           int d, int vec) {
+  if (c >= d) return make_uint4(0u, 0u, 0u, 0u);
+  if (vec) return *reinterpret_cast<const uint4*>(row + c);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (c + e < d)
+      w[e >> 1] |= (uint32_t)__bfloat16_as_ushort(row[c + e]) << (16 * (e & 1));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One CTA of a cluster of `splits` (the cluster's size) for each (batch
+// row, kv head): rank r holds view slots [r span, (r + 1) span).  A K row
+// is LPR lanes of 8 elements (LPR 4, 8, 16 or 32: head dims up to 32, 64,
+// 128, and above, where a lane walks the row's 256-wide segments).  With
+// `vsm` the span's V rows are staged in shared memory while the scores
+// run; without (a long view with wide value heads), PV reads them in
+// place.
+template <int LPR, bool PAGED>
+__global__ void __launch_bounds__(DEC_THREADS)
 mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const uint8_t* __restrict__ valid,
-                 __nv_bfloat16* __restrict__ out, int G, int S, int d, int dv,
-                 int H, DecRows rows, long long valid_sb, int has_fmt,
-                 MxFmt f, float scale) {
-  extern __shared__ float sm[];
-  float* qs = sm;                 // [G][d]
-  float* sc = qs + G * d;         // [G][S]
-  float* red = sc + G * S;        // [DEC_WARPS][G][dv], or warp scratch
+                 __nv_bfloat16* __restrict__ out, int G, int S, int span,
+                 int d, int dv, int H, DecRows rows, long long valid_sb,
+                 int vec, int vsm, int has_fmt, MxFmt f, float scale) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int splits = (int)cluster.num_blocks();
+  const int dvs = (dv + 7) & ~7;
+  const int nseg = (d + 8 * LPR - 1) / (8 * LPR);   // row segments a lane
+  const int W = nseg * 8 * LPR;                     // padded head dim
+  extern __shared__ __align__(16) unsigned char dec_sm[];
+  __nv_bfloat16* vs = (__nv_bfloat16*)dec_sm;   // [span][dvs] v rows (vsm)
+  float* qs = (float*)(vs + (vsm ? span * dvs : 0));   // [G][W] cast q
+  float* sc = qs + G * W;                       // [G][span] scores, then p
+  float* part = sc + G * span;                  // [G][dv] partial PV
+  float* red = part + G * dv;                   // [4][MAXG], see below
+  uint8_t* oks = (uint8_t*)(red + 4 * MAXG);    // [span] slot valid
+  float* loc_max = red;
+  float* loc_sum = red + MAXG;
+  float* glob_max = red + 2 * MAXG;
+  float* glob_sum = red + 3 * MAXG;             // clamped at 1e-30
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int s0 = rank * span, n = max(0, min(span, S - s0));
   const uint8_t* ok = valid + b * valid_sb;
   auto krow = [&](int s) {
     return k + dec_row<PAGED>(rows, rows.ksb, rows.kss, rows.ksh, b, h, s);
@@ -281,117 +361,195 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
   auto vrow = [&](int s) {
     return v + dec_row<PAGED>(rows, rows.vsb, rows.vss, rows.vsh, b, h, s);
   };
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  float vals[8];   // one value from each rank (dec_gather)
 
-  for (int gg = warp; gg < G; gg += DEC_WARPS)
-    for (int c0 = 0; c0 < d; c0 += 32) {
-      const int c = c0 + lane;
-      float x = c < d ? __bfloat162float(q[((long long)bh * G + gg) * d + c])
-                      : 0.f;
-      if (has_fmt) x = mx_warp_quant(x, f);
-      if (c < d) qs[gg * d + c] = x;
+  // V rows of the span into shared memory while the scores run; zeros
+  // past the view (the reference's padding of the last 32-block).
+  const int vch = vsm ? dvs / 8 : 0;
+  for (int i = tid; i < span * vch; i += DEC_THREADS) {
+    const int r = i / vch, c = (i % vch) * 8;
+    __nv_bfloat16* dst = vs + r * dvs + c;
+    if (vec && r < n) {
+      dec_cp16(dst, vrow(s0 + r) + c);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = (r < n && c + e < dv) ? vrow(s0 + r)[c + e] : zero;
     }
-  __syncthreads();
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  // Scores: one warp per cache row, k quantized along d on load.
-  for (int s = warp; s < S; s += DEC_WARPS) {
-    float dots[MAXG];
+  // Scores of all G query heads: a K row is LPR lanes of 8 elements, cast
+  // along d in place (mx_quad_quant: 4 lanes a 32-block); a thread issues
+  // the loads of DEC_KB rows' first segments before it uses any.
+  const int steps = span * LPR / DEC_THREADS;   // span is a multiple of 32
+  for (int st0 = 0; st0 < steps; st0 += DEC_KB) {
+    uint4 raw[DEC_KB];
 #pragma unroll
-    for (int gg = 0; gg < MAXG; ++gg) dots[gg] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += 32) {
-      const int c = c0 + lane;
-      float x = c < d ? __bfloat162float(krow(s)[c]) : 0.f;
-      if (has_fmt) x = mx_warp_quant(x, f);
-#pragma unroll
-      for (int gg = 0; gg < MAXG; ++gg)
-        if (gg < G && c < d) dots[gg] = fmaf(qs[gg * d + c], x, dots[gg]);
+    for (int u = 0; u < DEC_KB; ++u) {
+      const int t = (st0 + u) * DEC_THREADS + tid, r = t / LPR;
+      raw[u] = (st0 + u < steps && r < n)
+                   ? dec_chunk(krow(s0 + r), (t % LPR) * 8, d, vec)
+                   : make_uint4(0u, 0u, 0u, 0u);
     }
-    const bool valid_s = ok[s] != 0;
+    if (st0 == 0) {   // q cast along d, and the span's validity
+      for (int i = tid; i < span; i += DEC_THREADS)
+        oks[i] = i < n && ok[s0 + i] != 0;
+      for (int gg = warp; gg < G; gg += DEC_THREADS / 32)
+        for (int c0 = 0; c0 < W; c0 += 32) {
+          const int c = c0 + lane;
+          float x = c < d
+                        ? __bfloat162float(q[((long long)bh * G + gg) * d + c])
+                        : 0.f;
+          if (has_fmt) x = mx_warp_quant(x, f);
+          qs[gg * W + c] = x;
+        }
+      __syncthreads();
+    }
 #pragma unroll
-    for (int gg = 0; gg < MAXG; ++gg)
-      if (gg < G) {
-        const float dot = mx_warp_sum(dots[gg]);
-        if (lane == 0) sc[gg * S + s] = valid_s ? dot * scale : NEG_INF;
+    for (int u = 0; u < DEC_KB; ++u) {
+      if (st0 + u >= steps) break;   // uniform over the CTA
+      const int t = (st0 + u) * DEC_THREADS + tid, r = t / LPR;
+      float dots[MAXG];
+#pragma unroll
+      for (int gg = 0; gg < MAXG; ++gg) dots[gg] = 0.f;
+      for (int seg = 0; seg < nseg; ++seg) {   // uniform over the CTA
+        const int c = seg * 8 * LPR + (t % LPR) * 8;
+        const uint4 chunk = seg == 0 ? raw[u]
+                            : r < n ? dec_chunk(krow(s0 + r), c, d, vec)
+                                    : make_uint4(0u, 0u, 0u, 0u);
+        const __nv_bfloat162* h2 =
+            reinterpret_cast<const __nv_bfloat162*>(&chunk);
+        float x[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 p2 = __bfloat1622float2(h2[e]);
+          x[2 * e] = p2.x;
+          x[2 * e + 1] = p2.y;
+        }
+        if (has_fmt) mx_quad_quant(x, f);
+#pragma unroll
+        for (int gg = 0; gg < MAXG; ++gg) {
+          if (gg >= G) break;   // uniform over the CTA
+          const float4* qv = reinterpret_cast<const float4*>(qs + gg * W + c);
+          const float4 qa = qv[0], qb = qv[1];
+          const float qq[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e) dots[gg] = fmaf(qq[e], x[e], dots[gg]);
+        }
       }
+#pragma unroll
+      for (int gg = 0; gg < MAXG; ++gg) {
+        if (gg >= G) break;   // uniform over the CTA
+#pragma unroll
+        for (int o = LPR / 2; o > 0; o >>= 1)
+          dots[gg] += __shfl_xor_sync(0xffffffffu, dots[gg], o);
+      }
+      if (t % LPR == 0)
+#pragma unroll
+        for (int gg = 0; gg < MAXG; ++gg)
+          if (gg < G) sc[gg * span + r] = oks[r] ? dots[gg] * scale : NEG_INF;
+    }
   }
   __syncthreads();
 
-  // Explicit softmax per query head, then quantize the normalized p along S.
-  for (int gg = 0; gg < G; ++gg) {
-    float* row = sc + gg * S;
-    float mx = NEG_INF;
-    for (int s = tid; s < S; s += DEC_WARPS * 32) mx = mx_nanmax(mx, row[s]);
-    mx = mx_warp_max(mx);
-    if (lane == 0) red[warp] = mx;
-    __syncthreads();
-    mx = NEG_INF;
-    for (int w = 0; w < DEC_WARPS; ++w) mx = mx_nanmax(mx, red[w]);
-    __syncthreads();
+  // The cluster's max, then its sum, each read from every rank's shared
+  // memory in rank order.  A span with no valid slot gives NEG_INF and 0.
+  for (int gg = warp; gg < G; gg += DEC_THREADS / 32) {
+    float m = NEG_INF;
+    for (int i = lane; i < span; i += 32) m = mx_nanmax(m, sc[gg * span + i]);
+    m = mx_warp_max(m);
+    if (lane == 0) loc_max[gg] = m;
+  }
+  cluster.sync();
+  if (tid < G) {
+    float m = NEG_INF;
+    dec_gather(cluster, loc_max, tid, splits, vals);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < splits) m = mx_nanmax(m, vals[r]);
+    glob_max[tid] = m;
+  }
+  __syncthreads();
+  for (int gg = warp; gg < G; gg += DEC_THREADS / 32) {
+    const float m = glob_max[gg];
     float sum = 0.f;
-    for (int s = tid; s < S; s += DEC_WARPS * 32) {
-      const float p = ok[s] ? expf(row[s] - mx) : 0.f;
-      row[s] = p;
+    for (int i = lane; i < span; i += 32) {
+      const float p = oks[i] ? expf(sc[gg * span + i] - m) : 0.f;
+      sc[gg * span + i] = p;
       sum += p;
     }
     sum = mx_warp_sum(sum);
-    if (lane == 0) red[warp] = sum;
-    __syncthreads();
-    float tot = 0.f;
-    for (int w = 0; w < DEC_WARPS; ++w) tot += red[w];
-    const float lc = fmaxf(tot, 1e-30f);
-    __syncthreads();
-    for (int bs = warp * 32; bs < S; bs += DEC_WARPS * 32) {
-      const int s = bs + lane;
-      float pr = s < S ? row[s] / lc : 0.f;
-      if (has_fmt) pr = mx_warp_quant(pr, f);
-      if (s < S) row[s] = pr;
-    }
-    __syncthreads();
+    if (lane == 0) loc_sum[gg] = sum;
   }
+  cluster.sync();
+  if (tid < G) {
+    float l = 0.f;
+    dec_gather(cluster, loc_sum, tid, splits, vals);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      if (r < splits) l += vals[r];
+    glob_sum[tid] = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
 
-  // PV: lane owns value columns, walks the 32 rows of each block.
-  float acc[MAXG][DVL];
+  // The normalized p, quantized along S per 32-block (a warp a block).
+  const int nb = (n + 31) / 32;   // blocks holding view slots
+  for (int task = warp; task < G * nb; task += DEC_THREADS / 32) {
+    const int gg = task / nb, i = (task % nb) * 32 + lane;
+    float pr = sc[gg * span + i] / glob_sum[gg];
+    if (has_fmt) pr = mx_warp_quant(pr, f);
+    sc[gg * span + i] = pr;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // Partial PV: four lanes a value column, eight slots of each 32-block a
+  // lane (the K cast's layout, so v's cast along S over every slot, valid
+  // or not, is mx_quad_quant); a lane walks the span's blocks in order,
+  // then the four lanes' sums are added (xor 2, then xor 1).
+  for (int it = 0; it < (4 * dv + DEC_THREADS - 1) / DEC_THREADS; ++it) {
+    const int j = it * DEC_THREADS + tid, c = j >> 2, qt = j & 3;
+    const bool live = c < dv;   // whole quads; dead ones still shuffle
+    float acc[MAXG];
 #pragma unroll
-  for (int gg = 0; gg < MAXG; ++gg)
+    for (int gg = 0; gg < MAXG; ++gg) acc[gg] = 0.f;
+    for (int blk = 0; blk < nb; ++blk) {
+      const int s = blk * 32 + qt * 8;
+      float x[8];
 #pragma unroll
-    for (int c = 0; c < DVL; ++c) acc[gg][c] = 0.f;
-  for (int bs = warp * 32; bs < S; bs += DEC_WARPS * 32) {
+      for (int e = 0; e < 8; ++e)
+        x[e] = !live ? 0.f
+               : vsm ? __bfloat162float(vs[(s + e) * dvs + c])
+               : s + e < n ? __bfloat162float(vrow(s0 + s + e)[c]) : 0.f;
+      if (has_fmt) mx_quad_quant(x, f);
 #pragma unroll
-    for (int c = 0; c < DVL; ++c) {
-      const int col = lane + 32 * c;
-      float vals[32];
-      float amax = 0.f;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const int s = bs + j;
-        vals[j] = (s < S && col < dv)
-                      ? __bfloat162float(vrow(s)[col]) : 0.f;
-        amax = mx_nanmax(amax, fabsf(vals[j]));
-      }
-      const int e = has_fmt ? mx_thread_exp(vals, amax, f) : 0;
-#pragma unroll
-      for (int j = 0; j < 32; ++j) {
-        const float x = has_fmt ? mx_cast(vals[j], e, f) : vals[j];
-        const int s = min(bs + j, S - 1);
-        const float keep = (bs + j < S) ? 1.f : 0.f;
+      for (int e = 0; e < 8; ++e)
 #pragma unroll
         for (int gg = 0; gg < MAXG; ++gg)
-          if (gg < G) acc[gg][c] = fmaf(sc[gg * S + s] * keep, x, acc[gg][c]);
-      }
+          if (gg < G) acc[gg] = fmaf(sc[gg * span + s + e], x[e], acc[gg]);
+    }
+#pragma unroll
+    for (int gg = 0; gg < MAXG; ++gg) {
+      if (gg >= G) break;   // uniform over the CTA
+      float a = acc[gg];
+      a += __shfl_xor_sync(0xffffffffu, a, 2);
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      if (live && qt == 0) part[gg * dv + c] = a;
     }
   }
+  cluster.sync();
+  if (rank == 0)   // the partials summed in rank order
+    for (int i = tid; i < G * dv; i += DEC_THREADS) {
+      float o = 0.f;
+      dec_gather(cluster, part, i, splits, vals);
 #pragma unroll
-  for (int gg = 0; gg < MAXG; ++gg)
-#pragma unroll
-    for (int c = 0; c < DVL; ++c) {
-      const int col = lane + 32 * c;
-      if (gg < G && col < dv) red[(warp * G + gg) * dv + col] = acc[gg][c];
+      for (int r = 0; r < 8; ++r)
+        if (r < splits) o += vals[r];
+      out[(long long)bh * G * dv + i] = __float2bfloat16_rn(o);
     }
-  __syncthreads();
-  for (int i = tid; i < G * dv; i += DEC_WARPS * 32) {
-    float o = 0.f;
-    for (int w = 0; w < DEC_WARPS; ++w) o += red[w * G * dv + i];
-    out[(long long)bh * G * dv + i] = __float2bfloat16_rn(o);
-  }
+  cluster.sync();   // every rank's shared memory lives until rank 0 is done
 }
 
 static int dv_lanes(int dv) { return (dv + 31) / 32; }
@@ -429,55 +587,119 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-extern "C" int mx_decode_smem_bytes(int G, int S, int d, int dv) {
-  const long long b = 4LL * ((long long)G * d + (long long)G * S
-                             + (long long)DEC_WARPS * (G * dv + 1));
-  return b > (1 << 30) ? (1 << 30) : (int)b;
+// Lanes of one K row (head dims up to 32, 64, 128; above, 32 lanes that
+// walk the row's 256-wide segments) and the padded head dim they cover.
+static int dec_lanes(int d) { return d <= 32 ? 4 : d <= 64 ? 8 : d <= 128 ? 16 : 32; }
+static long long dec_width(int d) {
+  const int l = dec_lanes(d);
+  return (long long)(d + 8 * l - 1) / (8 * l) * 8 * l;
 }
 
+// Shared memory of a decode CTA, without (vsm 0) or with (vsm 1) the
+// span's V rows staged.
+static long long dec_smem(int G, int span, int d, int dv, int vsm) {
+  const long long dvs = (dv + 7) / 8 * 8;
+  return (vsm ? 2LL * span * dvs : 0) + 4LL * G * dec_width(d)
+         + 4LL * G * span + 4LL * G * dv + 4LL * 4 * MAXG
+         + (span + 15) / 16 * 16;
+}
+
+// What the kernel takes: V staged when that fits a CTA, else read in place;
+// -1 when the shape does not fit the kernel (G, the head dims, a CTA's
+// shared memory).  The one place that holds the decode kernels' limits.
+extern "C" int mx_decode_smem_bytes(int G, int span, int d, int dv) {
+  if (G <= 0 || G > MAXG || d <= 0 || dv <= 0 || dv > MAXD || span <= 0)
+    return -1;
+  long long b = dec_smem(G, span, d, dv, 1);
+  if (b > DEC_MAX_SMEM) b = dec_smem(G, span, d, dv, 0);
+  return b > DEC_MAX_SMEM ? -1 : (int)b;
+}
+
+template <int LPR, bool PAGED>
+static int decode_cluster(const void* q, const void* k, const void* v,
+                          const void* valid, void* out, int BH, int G, int S,
+                          int splits, int span, int d, int dv, int H,
+                          const DecRows& rows, long long valid_sb, int vec,
+                          int vsm, int has_fmt, const MxFmt& f, float scale,
+                          int smem, cudaStream_t s) {
+  auto kern = mx_decode_kernel<LPR, PAGED>;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)BH, (unsigned)splits, 1);
+  cfg.blockDim = dim3(DEC_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const uint8_t*)valid, (__nv_bfloat16*)out, G,
+      S, span, d, dv, H, rows, valid_sb, vec, vsm, has_fmt, f, scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The view is split into `splits` spans of `span` slots (ops.decode_plan:
+// span a multiple of 32, splits <= 8, splits * span >= S), one CTA each,
+// launched as one cluster per (row, kv head).
 template <bool PAGED>
 static int decode_launch(const void* q, const void* k, const void* v,
                          const void* valid, void* out, int BH, int G, int S,
-                         int d, int dv, int H, const DecRows& rows,
-                         long long valid_sb, int has_fmt, int mbits,
-                         int min_normal_exp, int e_max, float max_normal,
-                         int scale_mode, float scale, void* stream) {
-  const int smem = mx_decode_smem_bytes(G, S, d, dv);
-  if (G > MAXG || dv > MAXD || smem > 48 * 1024)
+                         int splits, int span, int d, int dv, int H,
+                         const DecRows& rows, long long valid_sb,
+                         int has_fmt, int mbits, int min_normal_exp,
+                         int e_max, float max_normal, int scale_mode,
+                         float scale, void* stream) {
+  const int smem = mx_decode_smem_bytes(G, span, d, dv);
+  if (smem < 0 || span % 32 || splits < 1 || splits > 8 ||
+      (long long)splits * span < S)
     return (int)cudaErrorInvalidValue;
+  const int vsm = dec_smem(G, span, d, dv, 1) <= DEC_MAX_SMEM;
   const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
                          scale_mode);
   cudaStream_t s = (cudaStream_t)stream;
-#define DEC_LAUNCH(N)                                                        \
-  mx_decode_kernel<N, PAGED><<<BH, DEC_WARPS * 32, (size_t)smem, s>>>(       \
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,                      \
-      (const __nv_bfloat16*)v, (const uint8_t*)valid, (__nv_bfloat16*)out,   \
-      G, S, d, dv, H, rows, valid_sb, has_fmt, f, scale)
-  if (BH > 0) {
-    switch (dv_lanes(dv)) {
-      case 1: DEC_LAUNCH(1); break;
-      case 2: DEC_LAUNCH(2); break;
-      case 3: DEC_LAUNCH(3); break;
-      default: DEC_LAUNCH(4); break;
-    }
+  if (BH <= 0) return (int)cudaGetLastError();
+  const long long strides = rows.ksb | rows.kss | rows.ksh | rows.vsb
+                            | rows.vss | rows.vsh;
+  const int vec = d % 8 == 0 && dv % 8 == 0 && strides % 8 == 0 &&
+                  ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
+#define DEC_CASE(LPR)                                                       \
+  return decode_cluster<LPR, PAGED>(q, k, v, valid, out, BH, G, S, splits, \
+                                    span, d, dv, H, rows, valid_sb, vec,    \
+                                    vsm, has_fmt, f, scale, smem, s)
+  switch (dec_lanes(d)) {
+    case 4: DEC_CASE(4);
+    case 8: DEC_CASE(8);
+    case 16: DEC_CASE(16);
+    default: DEC_CASE(32);
   }
-#undef DEC_LAUNCH
-  return (int)cudaGetLastError();
+#undef DEC_CASE
 }
 
 extern "C" int mx_attn_decode(const void* q, const void* k, const void* v,
                               const void* valid, void* out, int BH, int G,
-                              int S, int d, int dv, int H, long long ksb,
-                              long long kss, long long ksh, long long vsb,
-                              long long vss, long long vsh,
-                              long long valid_sb, int has_fmt, int mbits,
-                              int min_normal_exp, int e_max,
+                              int S, int d, int dv, int H, int splits,
+                              int span, long long ksb, long long kss,
+                              long long ksh, long long vsb, long long vss,
+                              long long vsh, long long valid_sb, int has_fmt,
+                              int mbits, int min_normal_exp, int e_max,
                               float max_normal, int scale_mode, float scale,
                               void* stream) {
   const DecRows rows{ksb, kss, ksh, vsb, vss, vsh, nullptr, 0, 1, 1};
-  return decode_launch<false>(q, k, v, valid, out, BH, G, S, d, dv, H, rows,
-                              valid_sb, has_fmt, mbits, min_normal_exp,
-                              e_max, max_normal, scale_mode, scale, stream);
+  return decode_launch<false>(q, k, v, valid, out, BH, G, S, splits, span,
+                              d, dv, H, rows, valid_sb, has_fmt, mbits,
+                              min_normal_exp, e_max, max_normal, scale_mode,
+                              scale, stream);
 }
 
 // q (B*H, G, d); k/v pools (N, ps, H, ·) with strides (ksn, kss, ksh) and
@@ -486,10 +708,11 @@ extern "C" int mx_attn_decode_paged(const void* q, const void* k,
                                     const void* v, const void* pt,
                                     const void* valid, void* out, int B,
                                     int H, int G, int P, int ps, int n_pages,
-                                    int d, int dv, long long ksn,
-                                    long long kss, long long ksh,
-                                    long long vsn, long long vss,
-                                    long long vsh, int has_fmt, int mbits,
+                                    int d, int dv, int splits, int span,
+                                    long long ksn, long long kss,
+                                    long long ksh, long long vsn,
+                                    long long vss, long long vsh,
+                                    int has_fmt, int mbits,
                                     int min_normal_exp, int e_max,
                                     float max_normal, int scale_mode,
                                     float scale, void* stream) {
@@ -497,8 +720,8 @@ extern "C" int mx_attn_decode_paged(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const DecRows rows{ksn, kss, ksh, vsn, vss, vsh, (const int*)pt, P, ps,
                      n_pages};
-  return decode_launch<true>(q, k, v, valid, out, B * H, G, P * ps, d, dv, H,
-                             rows, (long long)P * ps, has_fmt, mbits,
-                             min_normal_exp, e_max, max_normal, scale_mode,
-                             scale, stream);
+  return decode_launch<true>(q, k, v, valid, out, B * H, G, P * ps, splits,
+                             span, d, dv, H, rows, (long long)P * ps,
+                             has_fmt, mbits, min_normal_exp, e_max,
+                             max_normal, scale_mode, scale, stream);
 }

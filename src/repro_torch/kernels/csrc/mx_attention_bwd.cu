@@ -3,42 +3,70 @@
 // Replaces: `mx_attn_bwd_pallas` (src/repro/kernels/mx_attention.py:275,
 //   pallas_calls at :306 and :326), with its dQ pass `_mx_attn_dq_kernel`
 //   (:216) over kv tiles and its dK/dV pass `_mx_attn_dkv_kernel` (:242)
-//   over q tiles with per-g partials summed over G in the wrapper; the
-//   oracle is `mx_flash_attention_bwd_ref` (src/repro/kernels/ref.py:226).
-// Bound: operations at the training shapes (BH 64, T 512, d 64 causal:
-//   ~4 GFLOP of score, dp and gradient products against ~20 MB moved).
-//   This first kernel runs them on the fp32 pipes: every gradient product
-//   has an fp32 operand (p or ds) that is not exact in bf16, so they cannot
-//   go to the bf16 tensor cores as they are.
+//   over q tiles with per-g partials summed over G in the wrapper (the
+//   shared recompute `_p_ds` :200-213); the oracle is
+//   `mx_flash_attention_bwd_ref` (src/repro/kernels/ref.py:226).
+// Bound: bytes at the training shapes (BH 64, T 512, d 64 causal: the
+//   function must move 33.6 MB, q, k, v, dout and out read and three bf16
+//   grads written, 10.1 µs at 3.35 TB/s, against 5.4 GFLOP of useful
+//   products, 5.4 µs at the bf16 peak; chip_smoke.py reckons both).  The
+//   tensor work as built is larger: S and dP are formed in both passes and
+//   each gradient product runs three times (below), 13 bf16 product units
+//   against the 5 of one plain product each.
 // Design: three launches per call.
-//   * delta = sum(dout * out) in fp32, a warp per query row.
-//   * dQ: one CTA per (bh, g, 16 query rows), 4 warps x 4 rows, lane = kv
-//     row of a 32-row kv block.  For each live kv block it recomputes
-//     p = exp(s - lse) from the *quantized* scores (q and k blocked along d,
-//     the forward's cast) and ds = p * (dp - delta) * scale with dp from raw
-//     v, and accumulates dq += ds @ k with raw k (straight-through).
-//   * dK/dV: one CTA per (bh, 16 kv rows), lane = query row of a 32-row q
-//     block.  The CTA loops over g and over the live q blocks inside
-//     itself, so the G reduction of dk and dv needs no atomics:
-//     dv += p^T dout (raw p), dk += ds^T q (raw q).
-//   The backward quantizes nothing along the kv axis, so no tile of the
-//   reference shapes its numbers and the kernel picks its own: 32-row
-//   blocks, skipped when the AttnSpec mask (causal, full, window, with
-//   q_offset) rules out every position of the CTA's rows, which equals
-//   computing them (p = 0 there).  Rows past Tq or Tk (a ragged last tile)
-//   are neither loaded nor stored.  bf16 mode (no format) uses the raw
-//   operands for the scores.  Grads are written in bf16, or in fp32 when
-//   asked (the card check compares before the cast).
+//   * Pre-pass: delta = sum(dout * out) in fp32, a warp per query row, and
+//     in MX mode the scores operands cast once: q and k blocked along d
+//     with `mx_warp_quant` (the shared cast) into a bf16 scratch, where the
+//     cast values are exact.  The raw q and k stay for the gradient
+//     products (straight-through).  bf16 mode reads q and k in place.
+//   * dQ: one CTA per (bh, g, 64 query rows), 4 warps of 16 rows, looping
+//     over the live kv blocks (64 rows; 32 for head dims above 64).
+//   * dK/dV: one CTA per (bh, 64 kv rows), looping over g and the live q
+//     blocks inside itself, so the G sum of dk and dv needs no atomics.
+//   Both passes recompute S = Q^ K^T and dP = dO V^T with `mma.sync`
+//   m16n8k16 (bf16 in, fp32 accumulators in registers): the cast q and k,
+//   raw dout and raw v are all exact in bf16.  P = exp(S scale - lse)
+//   (masked to 0) and dS = P (dP - delta) scale are formed in registers in
+//   fp32, in the accumulators' layout, which is the A operand's layout of
+//   the next product.  P and dS are not exact in bf16, so each gradient
+//   product (dV += P^T dO, dK += dS^T Q, dQ += dS K, raw operands) takes
+//   them as three bf16 pieces, hi = bf16(x), mid = bf16(x - hi),
+//   lo = bf16(x - hi - mid), which carry all 24 bits of x (exact for
+//   2^-110 <= |x| < 2^127), in three products into one fp32 accumulator:
+//   each term to fp32's own rounding.  No TF32, no two-piece split (about
+//   11 and 17 bits a term).  Tiles arrive by cp.async (16 bytes a thread,
+//   zero filled past the ragged edges; element by element when a head dim
+//   is not a multiple of 8), double-buffered, into rows padded by 16 bytes
+//   so that `ldmatrix` reads them without bank conflicts.  A block that
+//   the AttnSpec mask (causal, full, window, with q_offset) rules out for
+//   every row of the CTA is skipped, which equals computing it (p = 0
+//   there).  Rows past Tq or Tk are zero filled and neither counted nor
+//   stored.  Every sum runs in a fixed order, so a second call gives equal
+//   bits.  Grads are written in bf16, or in fp32 when asked; the bf16
+//   grads are the fp32 ones rounded once.
 #include <math.h>
+#include <stdint.h>
 
 #include "mx_quant.cuh"
 
 namespace {
-constexpr int BW_WARPS = 4;
-constexpr int BW_RPW = 4;                     // rows per warp
-constexpr int BW_ROWS = BW_WARPS * BW_RPW;    // rows per CTA
+constexpr int BW_THREADS = 128;   // 4 warps of 16 own rows
+constexpr int BW_BM = 64;         // own rows of a CTA
 constexpr float NEG_INF = -1e30f;
 enum { KIND_CAUSAL = 0, KIND_FULL = 1, KIND_WINDOW = 2 };
+typedef __nv_bfloat16 bf16;
+
+// Shapes of the tiles for a padded head dim D (a multiple of 32).
+template <int D>
+struct BwTile {
+  static constexpr int LD = D + 8;              // smem row stride (bf16)
+  static constexpr int BN = D > 64 ? 32 : 64;   // rows of a visited block
+  static constexpr int NT = BN / 8;             // n-tiles of S and dP
+  static constexpr int KS = D / 16;             // k-steps over the head dim
+  static constexpr int DT = D / 8;              // n-tiles of a gradient
+  static constexpr int SMEM = 2 * (2 * BW_BM * LD + 2 * 3 * BN * LD)
+                              + 4 * 2 * 2 * BN;
+};
 }  // namespace
 
 __device__ __forceinline__ bool bw_valid(int kind, int window, int qpos,
@@ -58,289 +86,480 @@ __device__ __forceinline__ bool bw_live(int kind, int window, int qa, int qb,
   return true;
 }
 
-// Load `n` rows of width `w` (row stride `ld` elements) into S (row stride
-// `lds`), zero past `valid_rows`, MX-quantizing each row along its width
-// when `quant` is set (a warp per row, lanes along the width).
-__device__ __forceinline__ void bw_load_rows(
-    const __nv_bfloat16* __restrict__ p, long long ld, int n, int valid_rows,
-    int w, float* S, int lds, bool quant, const MxFmt& f) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < n; r += BW_WARPS)
-    for (int c0 = 0; c0 < w; c0 += 32) {
-      const int c = c0 + lane;
-      float x = (r < valid_rows && c < w)
-                    ? __bfloat162float(p[(long long)r * ld + c]) : 0.f;
-      if (quant) x = mx_warp_quant(x, f);
-      if (c < w) S[r * lds + c] = x;
-    }
+__device__ __forceinline__ uint32_t bw_smem(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-__global__ void mx_attn_bwd_delta_kernel(const __nv_bfloat16* __restrict__ dout,
-                                         const __nv_bfloat16* __restrict__ out,
-                                         float* __restrict__ delta,
-                                         long long rows, int dv) {
+// 16 bytes from global to shared memory; src_bytes 0 writes zeros.
+__device__ __forceinline__ void bw_cp16(void* dst, const void* src,
+                                        int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   bw_smem(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bw_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bw_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(bw_smem(p)));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(bw_smem(p)));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) b (16x8 bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bw_pack(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float bw_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The A fragments (16 rows x 16 columns) of three bf16 pieces of an fp32
+// tile held in the accumulators' layout as its n-tiles c0 (columns 0-7) and
+// c1 (8-15): x = hi + mid + lo, each piece bf16.
+__device__ __forceinline__ void bw_pieces(const float (&c0)[4],
+                                          const float (&c1)[4],
+                                          uint32_t (&hi)[4],
+                                          uint32_t (&mid)[4],
+                                          uint32_t (&lo)[4]) {
+  const float x[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
+  float h[8], m[8], l[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    h[e] = bw_round(x[e]);
+    const float r = __fsub_rn(x[e], h[e]);
+    m[e] = bw_round(r);
+    l[e] = __fsub_rn(r, m[e]);   // rounded to bf16 by bw_pack
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = bw_pack(h[2 * i], h[2 * i + 1]);
+    mid[i] = bw_pack(m[2 * i], m[2 * i + 1]);
+    lo[i] = bw_pack(l[2 * i], l[2 * i + 1]);
+  }
+}
+
+// acc (16 x D, n-tiles) += x (16 x 16 fp32, as pieces) @ tile rows
+// [16 kk, 16 kk + 16) of a shared (k-major) tile, by ldmatrix.trans.
+template <int D>
+__device__ __forceinline__ void bw_grad_step(float (&acc)[D / 8][4],
+                                             const float (&c0)[4],
+                                             const float (&c1)[4],
+                                             const bf16* tile, int kk,
+                                             int lane) {
+  constexpr int LD = BwTile<D>::LD;
+  uint32_t hi[4], mid[4], lo[4];
+  bw_pieces(c0, c1, hi, mid, lo);
+  const bf16* base = tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
+                     + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    uint32_t b[4];
+    ldsm4t(b, base + np * 16);
+    mma_bf16(acc[2 * np], hi, b[0], b[1]);
+    mma_bf16(acc[2 * np], mid, b[0], b[1]);
+    mma_bf16(acc[2 * np], lo, b[0], b[1]);
+    mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
+    mma_bf16(acc[2 * np + 1], mid, b[2], b[3]);
+    mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
+  }
+}
+
+// x (16 own rows x BN) = A rows [16 warp, +16) of `own` @ B^T, B the
+// block's rows in `blk` (both head-dim-major, k = head dim).
+template <int D>
+__device__ __forceinline__ void bw_scores(float (&x)[BwTile<D>::NT][4],
+                                          const bf16* own, const bf16* blk,
+                                          int warp, int lane) {
+  using C = BwTile<D>;
+#pragma unroll
+  for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C::KS; ++kk) {
+    uint32_t a[4];
+    ldsm4(a, own + (warp * 16 + (lane & 15)) * C::LD + kk * 16
+                 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jp = 0; jp < C::NT / 2; ++jp) {
+      uint32_t b[4];
+      ldsm4(b, blk + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * C::LD
+                   + kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(x[2 * jp], a, b[0], b[1]);
+      mma_bf16(x[2 * jp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Rows [0, n) of a bf16 matrix (row stride ld elements) into a shared tile
+// of D columns (row stride LD), zeros past `valid` rows and `w` columns.
+// vec: w a multiple of 8 and 16-byte aligned rows, by cp.async.
+template <int D>
+__device__ __forceinline__ void bw_tile(bf16* s, const bf16* g, long long ld,
+                                        int n, int valid, int w, bool vec) {
+  constexpr int CH = D / 8, LD = BwTile<D>::LD;
+  for (int i = threadIdx.x; i < n * CH; i += BW_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    bf16* dst = s + r * LD + c;
+    if (vec) {
+      const bool in = r < valid && c < w;
+      bw_cp16(dst, in ? (const void*)(g + r * ld + c) : (const void*)g,
+              in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dst[e] = (r < valid && c + e < w) ? g[r * ld + c + e]
+                                          : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// delta for the q rows; in MX mode q and k cast along d into qh and kh.
+__global__ void mx_attn_bwd_prep_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ dout, const bf16* __restrict__ out,
+    float* __restrict__ delta, bf16* __restrict__ qh, bf16* __restrict__ kh,
+    long long qrows, long long krows, int d, int dv, int has_fmt, MxFmt f) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * (blockDim.x >> 5)
                         + (threadIdx.x >> 5);
-  if (row >= rows) return;   // whole warp exits together
-  float s = 0.f;
-  for (int c = lane; c < dv; c += 32)
-    s += __bfloat162float(dout[row * dv + c])
-         * __bfloat162float(out[row * dv + c]);
-  s = mx_warp_sum(s);
-  if (lane == 0) delta[row] = s;
+  if (row >= qrows + krows) return;   // whole warp exits together
+  const bool is_q = row < qrows;
+  if (is_q) {
+    float s = 0.f;
+    for (int c = lane; c < dv; c += 32)
+      s += __bfloat162float(dout[row * dv + c])
+           * __bfloat162float(out[row * dv + c]);
+    s = mx_warp_sum(s);
+    if (lane == 0) delta[row] = s;
+  }
+  if (!has_fmt) return;
+  const long long r = is_q ? row : row - qrows;
+  const bf16* src = (is_q ? q : k) + r * d;
+  bf16* dst = (is_q ? qh : kh) + r * d;
+  for (int c0 = 0; c0 < d; c0 += 32) {
+    const int c = c0 + lane;
+    const float x = mx_warp_quant(c < d ? __bfloat162float(src[c]) : 0.f, f);
+    if (c < d) dst[c] = __float2bfloat16_rn(x);
+  }
 }
 
-template <int NL, typename OutT>
-__global__ void __launch_bounds__(BW_WARPS * 32)
-mx_attn_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
+template <int D, typename OutT>
+__global__ void __launch_bounds__(BW_THREADS)
+mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
+                      const bf16* __restrict__ k, const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, OutT* __restrict__ dq,
                       int G, int Tq, int Tk, int d, int dv, int kind,
-                      int window, int q_offset, int has_fmt, MxFmt f,
-                      float scale) {
-  extern __shared__ float sm[];
-  float* qs = sm;                     // [16][d]   scores operand
-  float* dos = qs + BW_ROWS * d;      // [16][dv]
-  float* ks = dos + BW_ROWS * dv;     // [32][d+1] scores operand
-  float* kr = ks + 32 * (d + 1);      // [32][d+1] raw k
-  float* vs = kr + 32 * (d + 1);      // [32][dv+1] raw v
+                      int window, int q_offset, int vec, float scale) {
+  using C = BwTile<D>;
+  constexpr int LD = C::LD, BN = C::BN;
+  extern __shared__ __align__(16) unsigned char bw_sm[];
+  bf16* sQ = (bf16*)bw_sm;          // [64][LD] own rows, scores operand
+  bf16* sDO = sQ + BW_BM * LD;      // [64][LD] own rows of dout
+  bf16* stage = sDO + BW_BM * LD;   // 2 x {k^, k, v} [BN][LD]
+  const bool sep = kh != k;         // MX: the cast k has its own tile
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.z, g = blockIdx.y, r0 = blockIdx.x * BW_ROWS;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.z, g = blockIdx.y, r0 = blockIdx.x * BW_BM;
   const long long row0 = ((long long)bh * G + g) * Tq + r0;
-  const int nrows = min(BW_ROWS, Tq - r0);
-  const __nv_bfloat16* kb = k + (long long)bh * Tk * d;
-  const __nv_bfloat16* vb = v + (long long)bh * Tk * dv;
+  const int nrows = min(BW_BM, Tq - r0);
+  const bf16* khb = kh + (long long)bh * Tk * d;
+  const bf16* kb = k + (long long)bh * Tk * d;
+  const bf16* vb = v + (long long)bh * Tk * dv;
+  auto st = [&](int s, int which) { return stage + (s * 3 + which) * BN * LD; };
 
-  bw_load_rows(q + row0 * d, d, BW_ROWS, nrows, d, qs, d, has_fmt, f);
-  bw_load_rows(dout + row0 * dv, dv, BW_ROWS, nrows, dv, dos, dv, false, f);
-  float lse_r[BW_RPW], dl_r[BW_RPW], acc[BW_RPW][NL];
-#pragma unroll
-  for (int rr = 0; rr < BW_RPW; ++rr) {
-    const int r = warp * BW_RPW + rr;
-    lse_r[rr] = r < nrows ? lse[row0 + r] : 0.f;
-    dl_r[rr] = r < nrows ? delta[row0 + r] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NL; ++c) acc[rr][c] = 0.f;
-  }
+  bw_tile<D>(sQ, qh + row0 * d, d, BW_BM, nrows, d, vec);
+  bw_tile<D>(sDO, dout + row0 * dv, dv, BW_BM, nrows, dv, vec);
   const int qa = r0 + q_offset, qb = r0 + nrows - 1 + q_offset;
+  auto next_live = [&](int bs) {
+    while (bs < Tk && !bw_live(kind, window, qa, qb, bs, min(bs + BN, Tk) - 1))
+      bs += BN;
+    return bs;
+  };
+  auto load = [&](int s, int bs) {
+    const int n = min(BN, Tk - bs);
+    if (sep) bw_tile<D>(st(s, 0), khb + (long long)bs * d, d, BN, n, d, vec);
+    bw_tile<D>(st(s, 1), kb + (long long)bs * d, d, BN, n, d, vec);
+    bw_tile<D>(st(s, 2), vb + (long long)bs * dv, dv, BN, n, dv, vec);
+  };
 
-  for (int bs = 0; bs < Tk; bs += 32) {
-    const int nk = min(32, Tk - bs);
-    if (!bw_live(kind, window, qa, qb, bs, bs + nk - 1)) continue;
-    __syncthreads();   // the previous block's reads are done
-    bw_load_rows(kb + (long long)bs * d, d, 32, nk, d, ks, d + 1, has_fmt,
-                 f);
-    if (has_fmt)
-      bw_load_rows(kb + (long long)bs * d, d, 32, nk, d, kr, d + 1, false,
-                   f);
-    bw_load_rows(vb + (long long)bs * dv, dv, 32, nk, dv, vs, dv + 1, false,
-                 f);
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gq + 8 * h;
+    lse_r[h] = r < nrows ? lse[row0 + r] : 0.f;
+    dl_r[h] = r < nrows ? delta[row0 + r] : 0.f;
+  }
+  float acc[C::DT][4];
+#pragma unroll
+  for (int j = 0; j < C::DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  int bs = next_live(0), s = 0;
+  if (bs < Tk) load(0, bs);
+  bw_commit();
+  while (bs < Tk) {
+    const int nx = next_live(bs + BN);
+    if (nx < Tk) load(s ^ 1, nx);
+    bw_commit();
+    bw_wait<1>();
     __syncthreads();
-    const float* kraw = has_fmt ? kr : ks;
+    float sc[C::NT][4], dp[C::NT][4];
+    bw_scores<D>(sc, sQ, st(s, sep ? 0 : 1), warp, lane);
+    bw_scores<D>(dp, sDO, st(s, 2), warp, lane);
 #pragma unroll
-    for (int rr = 0; rr < BW_RPW; ++rr) {
-      const int r = warp * BW_RPW + rr;
-      if (r >= nrows) continue;   // warp-uniform
-      const bool ok = lane < nk &&
-                      bw_valid(kind, window, r0 + r + q_offset, bs + lane);
-      float dot = 0.f, dp = 0.f;
-      for (int t = 0; t < d; ++t) dot = fmaf(qs[r * d + t], ks[lane * (d + 1) + t], dot);
-      for (int c = 0; c < dv; ++c) dp = fmaf(dos[r * dv + c], vs[lane * (dv + 1) + c], dp);
-      const float p = ok ? expf(dot * scale - lse_r[rr]) : 0.f;
-      const float ds = p * (dp - dl_r[rr]) * scale;
-      for (int j = 0; j < 32; ++j) {
-        const float dsj = __shfl_sync(0xffffffffu, ds, j);
+    for (int j = 0; j < C::NT; ++j)
 #pragma unroll
-        for (int c = 0; c < NL; ++c) {
-          const int col = lane + 32 * c;
-          if (col < d) acc[rr][c] = fmaf(dsj, kraw[j * (d + 1) + col], acc[rr][c]);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, r = warp * 16 + gq + 8 * h;
+        const int col = bs + 8 * j + 2 * tq + (e & 1);
+        const bool ok = r < nrows && col < Tk &&
+                        bw_valid(kind, window, r0 + r + q_offset, col);
+        const float p = ok ? expf(__fsub_rn(__fmul_rn(sc[j][e], scale),
+                                            lse_r[h]))
+                           : 0.f;
+        sc[j][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[j][e], dl_r[h])),
+                             scale);   // ds
       }
-    }
-  }
 #pragma unroll
-  for (int rr = 0; rr < BW_RPW; ++rr) {
-    const int r = warp * BW_RPW + rr;
-    if (r >= nrows) continue;
-#pragma unroll
-    for (int c = 0; c < NL; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) mx_store<OutT>(dq + (row0 + r) * d + col, acc[rr][c]);
-    }
+    for (int kk = 0; kk < C::NT / 2; ++kk)
+      bw_grad_step<D>(acc, sc[2 * kk], sc[2 * kk + 1], st(s, 1), kk, lane);
+    __syncthreads();   // this stage's reads are done before it is refilled
+    s ^= 1;
+    bs = nx;
   }
+  bw_wait<0>();
+#pragma unroll
+  for (int j = 0; j < C::DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = warp * 16 + gq + 8 * (e >> 1);
+      const int col = 8 * j + 2 * tq + (e & 1);
+      if (r < nrows && col < d)
+        mx_store<OutT>(dq + (row0 + r) * d + col, acc[j][e]);
+    }
 }
 
-template <int NL, typename OutT>
-__global__ void __launch_bounds__(BW_WARPS * 32)
-mx_attn_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ dout,
+template <int D, typename OutT>
+__global__ void __launch_bounds__(BW_THREADS)
+mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
+                       const bf16* __restrict__ kh,
+                       const bf16* __restrict__ q, const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
                        const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       OutT* __restrict__ dk, OutT* __restrict__ dvo, int G,
-                       int Tq, int Tk, int d, int dv, int kind, int window,
-                       int q_offset, int has_fmt, MxFmt f, float scale) {
-  extern __shared__ float sm[];
-  float* kq = sm;                      // [16][d]   scores operand
-  float* vr = kq + BW_ROWS * d;        // [16][dv]  raw v
-  float* qq = vr + BW_ROWS * dv;       // [32][d+1] scores operand
-  float* qr = qq + 32 * (d + 1);       // [32][d+1] raw q
-  float* dos = qr + 32 * (d + 1);      // [32][dv+1]
-  float* lse_s = dos + 32 * (dv + 1);  // [32]
-  float* dl_s = lse_s + 32;            // [32]
+                       const float* __restrict__ delta, OutT* __restrict__ dk,
+                       OutT* __restrict__ dvo, int G, int Tq, int Tk, int d,
+                       int dv, int kind, int window, int q_offset, int vec,
+                       float scale) {
+  using C = BwTile<D>;
+  constexpr int LD = C::LD, BN = C::BN;
+  extern __shared__ __align__(16) unsigned char bw_sm[];
+  bf16* sK = (bf16*)bw_sm;          // [64][LD] own rows, scores operand
+  bf16* sV = sK + BW_BM * LD;       // [64][LD] own rows of v
+  bf16* stage = sV + BW_BM * LD;    // 2 x {q^, q, dout} [BN][LD]
+  float* lse_s = (float*)(stage + 2 * 3 * BN * LD);   // [2][BN]
+  float* dl_s = lse_s + 2 * BN;                       // [2][BN]
+  const bool sep = qh != q;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int bh = blockIdx.y, j0 = blockIdx.x * BW_ROWS;
-  const int nrows = min(BW_ROWS, Tk - j0);
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.y, j0 = blockIdx.x * BW_BM;
+  const int nrows = min(BW_BM, Tk - j0);
   const long long krow0 = (long long)bh * Tk + j0;
+  auto st = [&](int s, int which) { return stage + (s * 3 + which) * BN * LD; };
 
-  bw_load_rows(k + krow0 * d, d, BW_ROWS, nrows, d, kq, d, has_fmt, f);
-  bw_load_rows(v + krow0 * dv, dv, BW_ROWS, nrows, dv, vr, dv, false, f);
-  float dk_acc[BW_RPW][NL], dv_acc[BW_RPW][NL];
-#pragma unroll
-  for (int rr = 0; rr < BW_RPW; ++rr)
-#pragma unroll
-    for (int c = 0; c < NL; ++c) dk_acc[rr][c] = dv_acc[rr][c] = 0.f;
+  bw_tile<D>(sK, kh + krow0 * d, d, BW_BM, nrows, d, vec);
+  bw_tile<D>(sV, v + krow0 * dv, dv, BW_BM, nrows, dv, vec);
   const int ka = j0, kb = j0 + nrows - 1;
+  const int nqb = (Tq + BN - 1) / BN, total = G * nqb;
+  auto next_live = [&](int it) {
+    for (; it < total; ++it) {
+      const int bs = (it % nqb) * BN;
+      if (bw_live(kind, window, bs + q_offset,
+                  min(bs + BN, Tq) - 1 + q_offset, ka, kb))
+        break;
+    }
+    return it;
+  };
+  auto load = [&](int s, int it) {
+    const int bs = (it % nqb) * BN, n = min(BN, Tq - bs);
+    const long long qrow0 = ((long long)bh * G + it / nqb) * Tq + bs;
+    if (sep) bw_tile<D>(st(s, 0), qh + qrow0 * d, d, BN, n, d, vec);
+    bw_tile<D>(st(s, 1), q + qrow0 * d, d, BN, n, d, vec);
+    bw_tile<D>(st(s, 2), dout + qrow0 * dv, dv, BN, n, dv, vec);
+    for (int i = threadIdx.x; i < BN; i += BW_THREADS) {
+      lse_s[s * BN + i] = i < n ? lse[qrow0 + i] : 0.f;
+      dl_s[s * BN + i] = i < n ? delta[qrow0 + i] : 0.f;
+    }
+  };
 
-  for (int g = 0; g < G; ++g) {
-    const long long qrow0 = ((long long)bh * G + g) * Tq;
-    for (int bs = 0; bs < Tq; bs += 32) {
-      const int nq = min(32, Tq - bs);
-      if (!bw_live(kind, window, bs + q_offset, bs + nq - 1 + q_offset, ka,
-                   kb))
-        continue;
-      __syncthreads();   // the previous block's reads are done
-      const __nv_bfloat16* qb = q + (qrow0 + bs) * d;
-      bw_load_rows(qb, d, 32, nq, d, qq, d + 1, has_fmt, f);
-      if (has_fmt) bw_load_rows(qb, d, 32, nq, d, qr, d + 1, false, f);
-      bw_load_rows(dout + (qrow0 + bs) * dv, dv, 32, nq, dv, dos, dv + 1,
-                   false, f);
-      if (threadIdx.x < 32) {
-        lse_s[lane] = lane < nq ? lse[qrow0 + bs + lane] : 0.f;
-        dl_s[lane] = lane < nq ? delta[qrow0 + bs + lane] : 0.f;
+  float dk_acc[C::DT][4], dv_acc[C::DT][4];
+#pragma unroll
+  for (int j = 0; j < C::DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+
+  int it = next_live(0), s = 0;
+  if (it < total) load(0, it);
+  bw_commit();
+  while (it < total) {
+    const int nx = next_live(it + 1);
+    if (nx < total) load(s ^ 1, nx);
+    bw_commit();
+    bw_wait<1>();
+    __syncthreads();
+    const int bs = (it % nqb) * BN;
+    float pt[C::NT][4], dst[C::NT][4];   // P^T and dP^T, then dS^T
+    bw_scores<D>(pt, sK, st(s, sep ? 0 : 1), warp, lane);
+    bw_scores<D>(dst, sV, st(s, 2), warp, lane);
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kr = warp * 16 + gq + 8 * (e >> 1);
+        const int qc = 8 * j + 2 * tq + (e & 1);
+        const bool ok = kr < nrows && bs + qc < Tq &&
+                        bw_valid(kind, window, bs + qc + q_offset, j0 + kr);
+        const float p = ok ? expf(__fsub_rn(__fmul_rn(pt[j][e], scale),
+                                            lse_s[s * BN + qc]))
+                           : 0.f;
+        pt[j][e] = p;
+        dst[j][e] = __fmul_rn(
+            __fmul_rn(p, __fsub_rn(dst[j][e], dl_s[s * BN + qc])), scale);
       }
-      __syncthreads();
-      const float* qraw = has_fmt ? qr : qq;
 #pragma unroll
-      for (int rr = 0; rr < BW_RPW; ++rr) {
-        const int jr = warp * BW_RPW + rr;
-        if (jr >= nrows) continue;   // warp-uniform
-        const bool ok = lane < nq &&
-                        bw_valid(kind, window, bs + lane + q_offset, j0 + jr);
-        float dot = 0.f, dp = 0.f;
-        for (int t = 0; t < d; ++t) dot = fmaf(qq[lane * (d + 1) + t], kq[jr * d + t], dot);
-        for (int c = 0; c < dv; ++c) dp = fmaf(dos[lane * (dv + 1) + c], vr[jr * dv + c], dp);
-        const float p = ok ? expf(dot * scale - lse_s[lane]) : 0.f;
-        const float ds = p * (dp - dl_s[lane]) * scale;
-        for (int i = 0; i < 32; ++i) {
-          const float pi = __shfl_sync(0xffffffffu, p, i);
-          const float dsi = __shfl_sync(0xffffffffu, ds, i);
-#pragma unroll
-          for (int c = 0; c < NL; ++c) {
-            const int col = lane + 32 * c;
-            if (col < dv) dv_acc[rr][c] = fmaf(pi, dos[i * (dv + 1) + col], dv_acc[rr][c]);
-            if (col < d) dk_acc[rr][c] = fmaf(dsi, qraw[i * (d + 1) + col], dk_acc[rr][c]);
-          }
-        }
-      }
+    for (int kk = 0; kk < C::NT / 2; ++kk) {
+      bw_grad_step<D>(dv_acc, pt[2 * kk], pt[2 * kk + 1], st(s, 2), kk, lane);
+      bw_grad_step<D>(dk_acc, dst[2 * kk], dst[2 * kk + 1], st(s, 1), kk,
+                      lane);
     }
+    __syncthreads();   // this stage's reads are done before it is refilled
+    s ^= 1;
+    it = nx;
   }
+  bw_wait<0>();
 #pragma unroll
-  for (int rr = 0; rr < BW_RPW; ++rr) {
-    const int jr = warp * BW_RPW + rr;
-    if (jr >= nrows) continue;
+  for (int j = 0; j < C::DT; ++j)
 #pragma unroll
-    for (int c = 0; c < NL; ++c) {
-      const int col = lane + 32 * c;
-      if (col < d) mx_store<OutT>(dk + (krow0 + jr) * d + col, dk_acc[rr][c]);
-      if (col < dv) mx_store<OutT>(dvo + (krow0 + jr) * dv + col, dv_acc[rr][c]);
+    for (int e = 0; e < 4; ++e) {
+      const int kr = warp * 16 + gq + 8 * (e >> 1);
+      const int col = 8 * j + 2 * tq + (e & 1);
+      if (kr >= nrows) continue;
+      if (col < d) mx_store<OutT>(dk + (krow0 + kr) * d + col, dk_acc[j][e]);
+      if (col < dv)
+        mx_store<OutT>(dvo + (krow0 + kr) * dv + col, dv_acc[j][e]);
     }
-  }
 }
 
-static int bw_smem_bytes(int d, int dv) {
-  return 4 * (BW_ROWS * d + BW_ROWS * dv + 64 * (d + 1) + 32 * (dv + 1)
-              + 64);
-}
-
-template <int NL, typename OutT>
-static int bw_launch(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const float* delta,
-                     void* dq, void* dk, void* dv_, int BH, int G, int Tq,
-                     int Tk, int d, int dv, int kind, int window,
-                     int q_offset, int has_fmt, MxFmt f, float scale,
-                     cudaStream_t s) {
-  const int smem = bw_smem_bytes(d, dv);
-  auto dq_k = mx_attn_bwd_dq_kernel<NL, OutT>;
-  auto dkv_k = mx_attn_bwd_dkv_kernel<NL, OutT>;
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-    cudaFuncSetAttribute(dkv_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         smem);
-  }
-  const __nv_bfloat16* qq = (const __nv_bfloat16*)q;
-  const __nv_bfloat16* kk = (const __nv_bfloat16*)k;
-  const __nv_bfloat16* vv = (const __nv_bfloat16*)v;
-  const __nv_bfloat16* dd = (const __nv_bfloat16*)dout;
-  dim3 gq((Tq + BW_ROWS - 1) / BW_ROWS, G, BH);
-  dq_k<<<gq, BW_WARPS * 32, smem, s>>>(qq, kk, vv, dd, (const float*)lse,
-                                       delta, (OutT*)dq, G, Tq, Tk, d, dv,
-                                       kind, window, q_offset, has_fmt, f,
-                                       scale);
-  dim3 gk((Tk + BW_ROWS - 1) / BW_ROWS, BH);
-  dkv_k<<<gk, BW_WARPS * 32, smem, s>>>(qq, kk, vv, dd, (const float*)lse,
-                                        delta, (OutT*)dk, (OutT*)dv_, G, Tq,
-                                        Tk, d, dv, kind, window, q_offset,
-                                        has_fmt, f, scale);
+template <int D, typename OutT>
+static int bw_launch(const bf16* q, const bf16* k, const bf16* v,
+                     const bf16* dout, const bf16* qh, const bf16* kh,
+                     const float* lse, const float* delta, void* dq,
+                     void* dk, void* dv_, int BH, int G, int Tq, int Tk,
+                     int d, int dv, int kind, int window, int q_offset,
+                     int vec, float scale, cudaStream_t s) {
+  constexpr int smem = BwTile<D>::SMEM;
+  auto dq_k = mx_attn_bwd_dq_kernel<D, OutT>;
+  auto dkv_k = mx_attn_bwd_dkv_kernel<D, OutT>;
+  cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  cudaFuncSetAttribute(dkv_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dim3 gq((Tq + BW_BM - 1) / BW_BM, G, BH);
+  dq_k<<<gq, BW_THREADS, smem, s>>>(qh, kh, k, v, dout, lse, delta,
+                                    (OutT*)dq, G, Tq, Tk, d, dv, kind,
+                                    window, q_offset, vec, scale);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dim3 gk((Tk + BW_BM - 1) / BW_BM, BH);
+  dkv_k<<<gk, BW_THREADS, smem, s>>>(qh, kh, q, v, dout, lse, delta,
+                                     (OutT*)dk, (OutT*)dv_, G, Tq, Tk, d,
+                                     dv, kind, window, q_offset, vec, scale);
   return (int)cudaGetLastError();
 }
 
-// `delta` is a (BH * G * Tq) fp32 scratch; grads are bf16, or fp32 with
-// out_fp32.  q (BH,G,Tq,d), k (BH,Tk,d), v (BH,Tk,dv), dout and out
-// (BH,G,Tq,dv) bf16, lse (BH,G,Tq) fp32, all contiguous.
+// `delta` is a (BH * G * Tq) fp32 scratch; `qk_hat` a bf16 scratch of
+// BH * G * Tq * d + BH * Tk * d elements in MX mode (the cast q, then the
+// cast k), unused in bf16 mode; grads are bf16, or fp32 with out_fp32.
+// q (BH,G,Tq,d), k (BH,Tk,d), v (BH,Tk,dv), dout and out (BH,G,Tq,dv)
+// bf16, lse (BH,G,Tq) fp32, all contiguous.
 extern "C" int mx_flash_bwd(const void* q, const void* k, const void* v,
                             const void* dout, const void* out,
-                            const void* lse, void* delta, void* dq, void* dk,
-                            void* dv_, int BH, int G, int Tq, int Tk, int d,
-                            int dv, int kind, int window, int q_offset,
-                            int out_fp32, int has_fmt, int mbits,
-                            int min_normal_exp, int e_max, float max_normal,
-                            int scale_mode, float scale, void* stream) {
-  if (d > 128 || dv > 128 || d <= 0 || dv <= 0)
+                            const void* lse, void* delta, void* qk_hat,
+                            void* dq, void* dk, void* dv_, int BH, int G,
+                            int Tq, int Tk, int d, int dv, int kind,
+                            int window, int q_offset, int out_fp32,
+                            int has_fmt, int mbits, int min_normal_exp,
+                            int e_max, float max_normal, int scale_mode,
+                            float scale, void* stream) {
+  if (d > 128 || dv > 128 || d <= 0 || dv <= 0 || (has_fmt && !qk_hat))
     return (int)cudaErrorInvalidValue;
   const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
                          scale_mode);
   cudaStream_t s = (cudaStream_t)stream;
   if (BH <= 0 || G <= 0 || Tq <= 0 || Tk <= 0) return (int)cudaGetLastError();
-  const long long rows = (long long)BH * G * Tq;
-  mx_attn_bwd_delta_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-      (const __nv_bfloat16*)dout, (const __nv_bfloat16*)out, (float*)delta,
-      rows, dv);
-  const int nl = (max(d, dv) + 31) / 32;
-#define BW_CASE(N)                                                          \
-  case N:                                                                   \
-    return out_fp32                                                         \
-               ? bw_launch<N, float>(q, k, v, dout, lse, (float*)delta, dq, \
-                                     dk, dv_, BH, G, Tq, Tk, d, dv, kind,   \
-                                     window, q_offset, has_fmt, f, scale,   \
-                                     s)                                     \
-               : bw_launch<N, __nv_bfloat16>(                               \
-                     q, k, v, dout, lse, (float*)delta, dq, dk, dv_, BH, G, \
-                     Tq, Tk, d, dv, kind, window, q_offset, has_fmt, f,     \
-                     scale, s);
-  switch (nl) {
-    BW_CASE(1)
-    BW_CASE(2)
-    BW_CASE(3)
-    default:
-    BW_CASE(4)
-  }
+  const bf16 *qq = (const bf16*)q, *kk = (const bf16*)k;
+  const long long qrows = (long long)BH * G * Tq, krows = (long long)BH * Tk;
+  bf16* qh = has_fmt ? (bf16*)qk_hat : nullptr;
+  bf16* kh = has_fmt ? qh + qrows * d : nullptr;
+  const long long prep_rows = qrows + (has_fmt ? krows : 0);
+  mx_attn_bwd_prep_kernel<<<(unsigned)((prep_rows + 7) / 8), 256, 0, s>>>(
+      qq, kk, (const bf16*)dout, (const bf16*)out, (float*)delta, qh, kh,
+      qrows, has_fmt ? krows : 0, d, dv, has_fmt, f);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  const bf16* sq = has_fmt ? qh : qq;
+  const bf16* sk = has_fmt ? kh : kk;
+  const uintptr_t align = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v
+                          | (uintptr_t)dout | (uintptr_t)sq | (uintptr_t)sk;
+  const int vec = d % 8 == 0 && dv % 8 == 0 && align % 16 == 0;
+  const int wide = max(d, dv);
+#define BW_CASE(D)                                                           \
+  return out_fp32                                                            \
+             ? bw_launch<D, float>(qq, kk, (const bf16*)v,                   \
+                                   (const bf16*)dout, sq, sk,                \
+                                   (const float*)lse, (const float*)delta,   \
+                                   dq, dk, dv_, BH, G, Tq, Tk, d, dv, kind,  \
+                                   window, q_offset, vec, scale, s)          \
+             : bw_launch<D, bf16>(qq, kk, (const bf16*)v, (const bf16*)dout, \
+                                  sq, sk, (const float*)lse,                 \
+                                  (const float*)delta, dq, dk, dv_, BH, G,   \
+                                  Tq, Tk, d, dv, kind, window, q_offset,     \
+                                  vec, scale, s)
+  if (wide <= 32) BW_CASE(32);
+  if (wide <= 64) BW_CASE(64);
+  if (wide <= 96) BW_CASE(96);
+  BW_CASE(128);
 #undef BW_CASE
-  return (int)cudaErrorInvalidValue;
 }

@@ -22,9 +22,10 @@
 //   monotone, so the max decides for the whole block); "adaptive" takes
 //   e + 1 only when the block's summed squared error at e + 1 is strictly
 //   smaller than at e; then the clip and the zero-block rule.  A block is
-//   held either one element a lane (`mx_warp_*`) or whole by one thread
-//   (`mx_thread_*`); the adaptive sums run in the same butterfly order in
-//   both, so every kernel takes the same choice for the same block (the
+//   held one element a lane (`mx_warp_*`), eight a lane over four lanes
+//   (`mx_quad_*`) or whole by one thread (`mx_thread_*`); the adaptive sums
+//   run in the same butterfly order in all three, so every kernel takes
+//   the same choice for the same block (the
 //   plain version's torch.sum may order its sum otherwise, so the two can
 //   differ only on near ties).
 #pragma once
@@ -202,6 +203,58 @@ __device__ __forceinline__ void mx_thread_quant(float (&v)[32],
   const int e = mx_thread_exp(v, amax, f);
 #pragma unroll
   for (int j = 0; j < 32; ++j) v[j] = mx_cast(v[j], e, f);
+}
+
+// A 32-block held 8 elements a lane by four consecutive lanes (element
+// 8 (lane & 3) + i in v[i] of that lane): the butterfly's steps 16 and 8
+// are the lane exchanges xor 2 and xor 1, its steps 4, 2 and 1 stay in the
+// lane, so the sum is mx_warp_sum's tree and every lane of the four ends
+// with it.  Every lane of the warp must take part; overwrites s.
+__device__ __forceinline__ float mx_quad_sum(float (&s)[8]) {
+#pragma unroll
+  for (int o = 2; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      s[i] = __fadd_rn(s[i], __shfl_xor_sync(0xffffffffu, s[i], o));
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    const int o = 4 >> l;
+#pragma unroll
+    for (int i = 0; i < o; ++i) s[i] = __fadd_rn(s[i], s[i + o]);
+  }
+  return s[0];
+}
+
+// Shared exponent of a block held as in mx_quad_sum: mx_warp_exp's value.
+__device__ __forceinline__ int mx_quad_exp(const float (&v)[8],
+                                           const MxFmt& f) {
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) amax = mx_nanmax(amax, fabsf(v[i]));
+  amax = mx_nanmax(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+  amax = mx_nanmax(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+  int e = mx_floor_exp(amax, f);
+  if (f.scale_mode == MX_BUMP) {
+    e += mx_overflows(amax, e, f);
+  } else if (f.scale_mode == MX_ADAPTIVE) {
+    float s0[8], s1[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s0[i] = mx_sq_err(v[i], e, f);
+      s1[i] = mx_sq_err(v[i], e + 1, f);
+    }
+    const float err0 = mx_quad_sum(s0);
+    const float err1 = mx_quad_sum(s1);
+    e += err1 < err0;
+  }
+  return mx_final_exp(e, amax);
+}
+
+// Quantize a block held as in mx_quad_sum, in place.
+__device__ __forceinline__ void mx_quad_quant(float (&v)[8], const MxFmt& f) {
+  const int e = mx_quad_exp(v, f);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = mx_cast(v[i], e, f);
 }
 
 __device__ __forceinline__ float mx_warp_max(float v) {

@@ -32,7 +32,7 @@ __all__ = ["mx_quantize", "mx_matmul", "mx_matmul_dgrad", "mx_matmul_wgrad",
            "mx_flash_attention", "mx_flash_attention_bwd",
            "mx_attention_decode", "mx_attention_decode_paged", "LAUNCHES",
            "reset_launches", "KERNELS", "bwd_gemm_plan", "fwd_gemm_plan",
-           "SCALE_MODES"]
+           "decode_plan", "SCALE_MODES"]
 
 #: Launch count of each kernel: one per launch, counted only where the
 #: kernel is launched (never for the plain versions).
@@ -90,13 +90,12 @@ _SIGNATURES = {
     "mx_flash_fwd": ("mx_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _I, *_FMT, _F,
                                       _P]),
-    "mx_flash_bwd": ("mx_attention_bwd", [_P] * 10 + [_I] * 11 + [*_FMT, _F,
+    "mx_flash_bwd": ("mx_attention_bwd", [_P] * 11 + [_I] * 11 + [*_FMT, _F,
                                                                  _P]),
-    "mx_attn_decode": ("mx_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                        _I, _I, _LL, _LL, _LL, _LL, _LL, _LL,
-                                        _LL, _I, *_FMT, _F, _P]),
-    "mx_attn_decode_paged": ("mx_attention", [_P] * 6 + [_I] * 8 + [_LL] * 6
-                             + [_I, *_FMT, _F, _P]),
+    "mx_attn_decode": ("mx_attention", [_P] * 5 + [_I] * 8 + [_LL] * 7
+                       + [_I, *_FMT, _F, _P]),
+    "mx_attn_decode_paged": ("mx_attention", [_P] * 6 + [_I] * 10
+                             + [_LL] * 6 + [_I, *_FMT, _F, _P]),
 }
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 _KIND = {"causal": 0, "full": 1, "window": 2}
@@ -112,6 +111,9 @@ BWD_TILE, BWD_DEPTH, _SMS = (128, 256), 64, 132
 #: but its FMAs grow with M (``chip_smoke.py`` times both paths at 4, 6
 #: and 8 rows; PERF.md).
 FWD_SMALL_M, FWD_SLABS = 8, 8
+#: The decode kernels' cluster: at most DECODE_CLUSTER CTAs (the portable
+#: cluster size) per (row, kv head).
+DECODE_CLUSTER = 8
 
 
 def reset_launches() -> None:
@@ -288,6 +290,28 @@ def bwd_gemm_plan(rows: int, cols: int, contraction: int) -> Tuple[int, int]:
     return depth, -(-ktiles // per)
 
 
+def decode_plan(S: int) -> Tuple[int, int]:
+    """``(splits, span)`` of a decode over a view of S slots: ``splits``
+    CTAs of one cluster (at most DECODE_CLUSTER) hold ``span`` slots each,
+    a multiple of the MX block, so no 32-block of p or v straddles two
+    CTAs; the last span may run past S.  It depends on S alone (not on the
+    batch or on which slots are valid), so a row's result does not depend
+    on the rows it shares a call with, and the paged kernel runs the slab
+    kernel's plan on the same view."""
+    span = max(1, -(-S // (DECODE_CLUSTER * MX_BLOCK))) * MX_BLOCK
+    return max(1, -(-S // span)), span
+
+
+def _decode_fits(name: str, G: int, S: int, d: int, dv: int):
+    """The plan of a decode over S slots, or ValueError when its shapes do
+    not fit the kernel (``mx_decode_smem_bytes`` holds the limits)."""
+    splits, span = decode_plan(S)
+    if _fn("mx_decode_smem_bytes")(G, span, d, dv) < 0:
+        raise ValueError(f"{name}: G={G}, view {S}, d={d}, dv={dv} does not "
+                         "fit the kernel's shared memory")
+    return splits, span
+
+
 def _bwd_scratch(rows: int, depth: int, device) -> torch.Tensor:
     """A quantized operand of a wgmma GEMM, contraction-major bf16."""
     return torch.empty((rows, depth), dtype=torch.bfloat16, device=device)
@@ -439,12 +463,16 @@ def mx_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
     q, k, v, dout, out, lse = (t.contiguous()
                                for t in (q, k, v, dout, out, lse))
     delta = torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
+    # MX mode: the scores operands (q, then k) cast once along d
+    qk_hat = (None if fmt is None else torch.empty(
+        q.numel() + k.numel(), dtype=torch.bfloat16, device=q.device))
     dq = torch.empty(q.shape, dtype=odt, device=q.device)
     dk = torch.empty(k.shape, dtype=odt, device=q.device)
     dvv = torch.empty(v.shape, dtype=odt, device=q.device)
     _launch("mx_flash_attention_bwd", "mx_flash_bwd", q.data_ptr(),
             k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), _ptr(qk_hat), dq.data_ptr(),
+            dk.data_ptr(),
             dvv.data_ptr(), BH, G, Tq, Tk, d, dv, _KIND[spec.kind],
             spec.window, spec.q_offset, int(odt == torch.float32),
             int(fmt is not None), *_fmt_args(fmt, scale_mode),
@@ -480,16 +508,14 @@ def mx_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(valid.shape)}")
     if k4.stride(-1) != 1 or v4.stride(-1) != 1:
         raise ValueError("mx_attention_decode: head dim must be contiguous")
-    if (G > 8 or dv > 128
-            or _fn("mx_decode_smem_bytes")(G, S, d, dv) > 48 * 1024):
-        raise ValueError(f"mx_attention_decode: G={G}, S={S}, d={d}, dv={dv} "
-                         "does not fit the kernel's shared memory")
+    splits, span = _decode_fits("mx_attention_decode", G, S, d, dv)
     q = q.contiguous()
     valid = valid.contiguous()
     out = torch.empty((BH, G, dv), dtype=q.dtype, device=q.device)
     _launch("mx_attention_decode", "mx_attn_decode", q.data_ptr(),
             k4.data_ptr(), v4.data_ptr(), valid.data_ptr(), out.data_ptr(),
-            BH, G, S, d, dv, H, k4.stride(0), k4.stride(1), k4.stride(2),
+            BH, G, S, d, dv, H, splits, span, k4.stride(0), k4.stride(1),
+            k4.stride(2),
             v4.stride(0), v4.stride(1), v4.stride(2), valid.stride(0),
             int(fmt is not None), *_fmt_args(fmt, scale_mode),
             1.0 / math.sqrt(d))
@@ -531,17 +557,15 @@ def mx_attention_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                          f"MX block ({block}), so no block straddles a page")
     if k_pool.stride(-1) != 1 or v_pool.stride(-1) != 1:
         raise ValueError(f"{name}: head dim must be contiguous")
-    if (G > 8 or dv > 128
-            or _fn("mx_decode_smem_bytes")(G, P * ps, d, dv) > 48 * 1024):
-        raise ValueError(f"{name}: G={G}, view {P * ps}, d={d}, dv={dv} "
-                         "does not fit the kernel's shared memory")
+    splits, span = _decode_fits(name, G, P * ps, d, dv)
     q = q.contiguous()
     page_table = page_table.contiguous()
     valid = valid.contiguous()
     out = torch.empty((BH, G, dv), dtype=q.dtype, device=q.device)
     _launch(name, "mx_attn_decode_paged", q.data_ptr(), k_pool.data_ptr(),
             v_pool.data_ptr(), page_table.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), B, H, G, P, ps, N, d, dv, *k_pool.stride()[:3],
+            out.data_ptr(), B, H, G, P, ps, N, d, dv, splits, span,
+            *k_pool.stride()[:3],
             *v_pool.stride()[:3], int(fmt is not None),
             *_fmt_args(fmt, scale_mode),
             1.0 / math.sqrt(d))
