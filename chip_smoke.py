@@ -12,7 +12,12 @@ Phases, each of which raises on failure:
                 into ``build/repro_torch/<source hash>/`` (parallel nvcc).
   2. kernels  — each kernel against its plain PyTorch version on the card at
                 the serve path's shapes (MX E4M3 and bf16 modes; flash at
-                buckets 64 and 512), timed by the profiler's device time
+                buckets 64 and 512, and at the training shape BH 64, T 512
+                with SDPA beside bf16 mode; the quantize kernel at the
+                training step's xn (4096, 512) fp32, its bf16 twin, the
+                serve shapes, K 48 and 70 and a misaligned view, each
+                bitwise under every scale rule), timed by the profiler's
+                device time
                 against the plain version and, where one exists, a PyTorch
                 call.  Attention outputs are held per element; planted
                 faults in the plain attention must fail that check.  The
@@ -23,6 +28,19 @@ Phases, each of which raises on failure:
                 E2M1) under each scale rule: quantize bitwise, the
                 forward GEMM on both paths, and the cast without the
                 min_normal_exp clamp planted, which the checks reject.
+                The flash forward at its edges (FLASH_FWD_EDGES: ragged
+                T 300, G 2, window with q_offset, full Tq 300 / Tk 200,
+                d 128, a chunked prefill, two JAX tiles causal and full,
+                head dims 100) in both modes, each called twice for equal
+                bits, its fp32 out the bf16 out before its rounding; an
+                output whose p holds a near tie of its cast may differ by
+                what the tie moves when each p moves by its reach, taken
+                from its score's term bound (flash_tie_slack, p_reach;
+                the plain p's measured gap to fp64 printed beside it, and
+                planted faults run through it).  In bf16 mode its
+                fp32 out against fp64 attention within max(1, 2x) the
+                plain version's reading, with "p as one bf16 piece"
+                planted.
      scale-modes — all eight kernels under "bump" and "adaptive" against
                 their plain versions, on inputs whose blocks make the rules
                 matter; adaptive choices that differ must be near ties
@@ -81,7 +99,11 @@ against the slab decode kernel on the gathered view and its plain
 version, with planted page-table faults.  [scale-modes] runs the flash
 dgrad's and decode's edges under "bump" and "adaptive" too, and holds the
 flash dgrad at d 128 with q and k at std 1 (logits of a few hundred)
-against the fp64 grads beside its plain version.
+against the fp64 grads beside its plain version, and runs the flash
+forward at BH 64, T 512 and at the bucket of 512 under both rules (the
+operands' adaptive near ties counted), each with the rule's planted
+faults (FLASH_MODE_FAULTS) through its near-tie check.  SDPA times are
+PyTorch's FlashAttention kernel (sdpa_flash), forward and backward.
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
@@ -135,48 +157,99 @@ def time_ms(fn, iters: int, flush) -> float:
     return time_parts_ms(fn, iters, flush)[0]
 
 
+_FLUSH_KEYS: frozenset = frozenset()   # the flush's kernels, seen once
+EVENT_TIMED = [0]   # calls timed with CUDA events (time_parts_ms)
+
+
+def _window_counts_ok(prof, iters: int) -> bool:
+    """Whether a profiler window of ``iters`` flush + fn pairs saw every
+    launch: each of the flush's kernels exactly ``iters`` times, and each
+    kernel of fn a whole multiple of ``iters`` times (at least once)."""
+    import torch
+    counts = {row.key: row.count for row in prof.key_averages()
+              if row.device_type == torch.autograd.DeviceType.CUDA}
+    own = [n for key, n in counts.items() if key not in _FLUSH_KEYS]
+    return (bool(_FLUSH_KEYS) and bool(own)
+            and all(counts.get(key, 0) == iters for key in _FLUSH_KEYS)
+            and all(n % iters == 0 for n in own))
+
+
 def time_parts_ms(fn, iters: int, flush):
     """Device time (ms) of one ``fn`` call, L2 flushed before each, and
     that time by kernel name.
 
     The profiler sums the device time of the kernels ``fn`` launches in a
     window of flush + ``fn`` pairs, leaving out the kernels a window of
-    the flush alone shows (the flush is a uint8 ``bitwise_not_`` over
-    64 MiB, which no timed function launches), so neither the flush nor
-    host launch overhead is counted.  The flush is taken out by name, not
-    by subtracting a second window's time: the flush's time varies by
-    more than a call of a few µs takes.  A window pair in which the
-    profiler saw no flush or no device time is taken again, up to three
-    times; then it raises."""
+    the flush alone showed (the flush is a uint8 ``bitwise_not_`` over
+    64 MiB, which no timed function launches; its kernels are read once
+    a run), so neither the flush nor host launch overhead is counted.  The
+    flush is taken out by name, not by subtracting a second window's time:
+    the flush's time varies by more than a call of a few µs takes.  A
+    window that lost records (the flush's kernels not seen exactly
+    ``iters`` times, or one of fn's kernels not a whole multiple of
+    ``iters`` times) is taken again, up to three times; then the call is
+    timed with CUDA events around each ``fn`` (after its flush), the parts
+    are empty, and EVENT_TIMED counts it (record() marks the row)."""
+    global _FLUSH_KEYS
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn(), fn()
     torch.cuda.synchronize()
-    for _ in range(3):   # a profiler window that saw nothing is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            flush()
-            torch.cuda.synchronize()
-        flush_keys = frozenset(
-            row.key for row in prof.key_averages()
-            if row.device_type == torch.autograd.DeviceType.CUDA)
+    for _ in range(3):   # a window that lost records is taken again
+        if not _FLUSH_KEYS:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                flush()
+                torch.cuda.synchronize()
+            _FLUSH_KEYS = frozenset(
+                row.key for row in prof.key_averages()
+                if row.device_type == torch.autograd.DeviceType.CUDA)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 flush()
                 fn()
             torch.cuda.synchronize()
-        us = _kernel_us(prof, flush_keys)
-        if flush_keys and us > 0:
+        if _window_counts_ok(prof, iters):
             break
     else:
-        raise RuntimeError(f"the profiler saw no device time for the call "
-                           f"(flush kernels {sorted(flush_keys)})")
+        print(f"[timing] the profiler lost records in three windows (flush "
+              f"kernels {sorted(_FLUSH_KEYS)}): CUDA events", flush=True)
+        EVENT_TIMED[0] += 1
+        return _event_ms(fn, iters, flush), {}
     parts = {row.key: getattr(row, "device_time_total",
                               getattr(row, "cuda_time_total", 0.0))
              / iters / 1e3
              for row in prof.key_averages()
              if row.device_type == torch.autograd.DeviceType.CUDA
-             and row.key not in flush_keys}
-    return us / iters / 1e3, parts
+             and row.key not in _FLUSH_KEYS}
+    return _kernel_us(prof, _FLUSH_KEYS) / iters / 1e3, parts
+
+
+def _event_ms(fn, iters: int, flush) -> float:
+    """Device time (ms) of one ``fn`` call between CUDA events recorded
+    around it, L2 flushed before each (host gaps inside ``fn`` count)."""
+    import torch
+    pairs = []
+    for _ in range(iters):
+        flush()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn()
+        e1.record()
+        pairs.append((e0, e1))
+    torch.cuda.synchronize()
+    return sum(e0.elapsed_time(e1) for e0, e1 in pairs) / iters
+
+
+def sdpa_flash(q, k, v):
+    """PyTorch's FlashAttention kernel, causal, on (BH, T, d) q, k, v taken
+    as (BH, 1, T, d): held to the flash backend, so that a fallback to
+    another backend (the math path takes any 3-D input and forms the whole
+    (BH, T, T) score matrix) raises instead of being timed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], is_causal=True)[:, 0]
 
 
 def bound(bytes_moved: float, flops: float):
@@ -217,19 +290,30 @@ def attn_check(out, want, floor: float):
 # version, so the check is known to be able to see them.
 FLASH_FAULTS = ("p unquantized", "p against a 32-column sub-tile max",
                 "v quantized along d")
+# The faults held to each scale rule.  Under "bump" and "adaptive" no
+# block max clamps, and the cast's grid is the same at every scale but for
+# the subnormals, so "v quantized along d" casts v as the plain version
+# does (the planted output equals it) and "e + 1 for every block of p"
+# moves only elements 2^-14 below their block's max; p cast under the
+# floor rule, which clamps such maxima, is held in their place.
+FLASH_MODE_FAULTS = {"floor": FLASH_FAULTS,
+                     "bump": FLASH_FAULTS[:2] + ("p cast under the floor "
+                                                 "rule",)}
+FLASH_MODE_FAULTS["adaptive"] = FLASH_MODE_FAULTS["bump"]
 DECODE_FAULTS = ("p unquantized", "p quantized before normalizing",
                  "v quantized along d", "v quantized over valid slots only")
 
 
-def planted_flash(q, k, v, fmt, fault):
+def planted_flash(q, k, v, fmt, fault, scale_mode="floor"):
     """The plain causal flash forward for one kv tile (every serve bucket
-    fits in one: kv_chunk 1024) with one planted ``fault`` (None: none)."""
+    fits in one: kv_chunk 1024) under ``scale_mode`` with one planted
+    ``fault`` (None: none)."""
     import torch
     from repro_torch.core import quantize_mx
     from repro_torch.kernels.ref import NEG_INF
 
     def Q(x, axis):
-        return quantize_mx(x, fmt, axis=axis)
+        return quantize_mx(x, fmt, axis=axis, scale_mode=scale_mode)
     T = k.shape[1]
     s = torch.einsum("bgqd,bkd->bgqk", Q(q.float(), -1), Q(k.float(), -1))
     s = s * (1.0 / math.sqrt(q.shape[-1]))
@@ -241,6 +325,8 @@ def planted_flash(q, k, v, fmt, fault):
     pq = Q(p, -1)
     if fault == "p unquantized":
         pq = p
+    elif fault == "p cast under the floor rule":
+        pq = quantize_mx(p, fmt, axis=-1)
     elif fault == "p against a 32-column sub-tile max":
         ms = s.unflatten(-1, (T // 32, 32)).amax(-1, keepdim=True)
         ms = ms.expand(*ms.shape[:-1], 32).flatten(-2)
@@ -418,12 +504,18 @@ def phase_kernels():
         return (torch.randn(*shape, generator=g) * std).to(dtype).to(dev)
 
     rows = {}
+    events_seen = [EVENT_TIMED[0]]
 
     def record(name, case, primary, err, ok, ms, plain_ms, library_ms,
                bnd, **extra):
+        # "events": one of the row's times came from CUDA events, since the
+        # last row (time_parts_ms)
+        timing = "events" if EVENT_TIMED[0] > events_seen[0] else "profiler"
+        events_seen[0] = EVENT_TIMED[0]
         entry = {"case": case, "max_abs_err": err, "ms": ms,
                  "plain_ms": plain_ms, "library_ms": library_ms,
-                 "bound_ms": bnd[0], "bound_by": bnd[1], **extra}
+                 "bound_ms": bnd[0], "bound_by": bnd[1], "timing": timing,
+                 **extra}
         print(f"[kernels] {'ok  ' if ok else 'FAIL'} {name} {json.dumps(entry)}",
               flush=True)
         if not ok:
@@ -434,18 +526,7 @@ def phase_kernels():
             rows[name].update(entry)
 
     # 1. quantize: apply_norm's fp32 activations and the affine scale.
-    for case, shape, primary in (("prefill xn (1,512,512) fp32", (1, 512, 512), True),
-                                 ("decode xn (4,1,512) fp32", (4, 1, 512), False),
-                                 ("ln scale (512,) fp32", (512,), False)):
-        x = rnd(*shape, dtype=torch.float32)
-        y = ops.mx_quantize(x, E4M3)
-        yr = ref.mx_quantize_ref(x, E4M3)
-        err = (y - yr).abs().max().item()
-        n = x.numel()
-        record("mx_quantize", case, primary, err, torch.equal(y, yr),
-               time_ms(lambda: ops.mx_quantize(x, E4M3), 50, flush),
-               time_ms(lambda: ref.mx_quantize_ref(x, E4M3), 10, flush),
-               None, bound(8 * n, 0))
+    quantize_rows(rnd, record, flush)
 
     # 2. forward GEMM on both paths (ops.fwd_gemm_plan): the small-M kernel
     # at decode (M = max_batch 4; the paged engine's 6 rows), the
@@ -484,8 +565,7 @@ def phase_kernels():
                            FLASH_FAULTS)
         lib = None
         if fmt is None:   # bf16 mode: the same function exists in PyTorch
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                q[:, 0], k, v, is_causal=True), 50, flush)
+            lib = time_ms(lambda: sdpa_flash(q[:, 0], k, v), 50, flush)
         n_scores = 8 * T * (T + 1) // 2
         record("mx_flash_attention",
                f"prefill bucket {T} BH8 G1 d64 {'e4m3' if fmt else 'bf16'} "
@@ -494,6 +574,8 @@ def phase_kernels():
                time_ms(lambda: ops.mx_flash_attention(q, k, v, fmt, spec), 20, flush),
                time_ms(lambda: ref.mx_flash_attention_ref(q, k, v, fmt, spec), 5, flush),
                lib, bound(2 * 4 * 8 * T * 64 + 4 * 8 * T, 4 * 64 * n_scores))
+
+    flash_fwd_kernels(rnd, record, flush)
 
     # 4. decode: max_batch 4 x 8 kv heads against a 512-slot cache; the
     # invalid slots hold random K/V, as stale rows and prefill pads do.
@@ -554,6 +636,506 @@ def phase_kernels():
     paged_kernels(record, flush)
     training_kernels(rnd, record, flush)
     return rows
+
+
+# Rows of the quantize kernel: (case, shape, dtype, a view at a 4-byte
+# offset, primary).  The training step's xn (8 x 512 tokens, fp32) first;
+# its bf16 twin; the serve path's shapes; K 48 (a partial last block on the
+# streaming path) and K 70 (not a multiple of 8) and the misaligned view,
+# which take the one-element-a-lane path.
+QUANTIZE_ROWS = (("train xn (4096,512) fp32", (4096, 512), "float32", False,
+                  True),
+                 ("train xn (4096,512) bf16", (4096, 512), "bfloat16", False,
+                  False),
+                 ("prefill xn (1,512,512) fp32", (1, 512, 512), "float32",
+                  False, False),
+                 ("decode xn (4,1,512) fp32", (4, 1, 512), "float32", False,
+                  False),
+                 ("ln scale (512,) fp32", (512,), "float32", False, False),
+                 ("ragged K 48 (100,48) fp32", (100, 48), "float32", False,
+                  False),
+                 ("ragged K 70 (100,70) fp32", (100, 70), "float32", False,
+                  False),
+                 ("misaligned view (4096,512) fp32", (4096, 512), "float32",
+                  True, False))
+
+
+def quantize_rows(rnd, record, flush):
+    """The quantize kernel at QUANTIZE_ROWS: bitwise to its plain version
+    on normal values, and under each scale rule on blocks that make the
+    rules matter (mode_input; adaptive: near ties only, counted); timed
+    against its bytes bound on the normal values."""
+    import torch
+    from repro_torch.core import E4M3
+    from repro_torch.kernels import ops, ref
+
+    g = torch.Generator().manual_seed(SEED + 18)
+    for case, shape, dtype, offset, primary in QUANTIZE_ROWS:
+        dt = getattr(torch, dtype)
+
+        def place(x):
+            if not offset:
+                return x.cuda()
+            buf = torch.empty(x.numel() + 1, dtype=dt, device="cuda")
+            view = buf[1:].view(x.shape)   # data_ptr 4 or 2 bytes off
+            view.copy_(x)
+            return view
+        x = place(rnd(*shape, dtype=dt).cpu())
+        y = ops.mx_quantize(x, E4M3)
+        yr = ref.mx_quantize_ref(x, E4M3)
+        ok = torch.equal(y, yr)
+        ties = {}
+        for mode in ("floor", "bump", "adaptive"):
+            xm = place(mode_input(shape, -1, E4M3, g, dtype=dt))
+            ok_m, n_off, _ = scale_choice_check(
+                xm, ops.mx_quantize(xm, E4M3, scale_mode=mode), E4M3, -1,
+                mode)
+            ok, ties[mode] = ok and ok_m, n_off
+        extra = {}
+        if primary:   # what a plain copy of the same bytes takes on the card
+            yc = torch.empty_like(x)
+            extra["copy_ms"] = time_ms(lambda: yc.copy_(x), 50, flush)
+        record("mx_quantize", f"{case} (under floor/bump/adaptive: "
+               f"{ties['adaptive']} adaptive near ties)", primary,
+               (y.float() - yr.float()).abs().max().item(), ok,
+               time_ms(lambda: ops.mx_quantize(x, E4M3), 50, flush),
+               time_ms(lambda: ref.mx_quantize_ref(x, E4M3), 10, flush)
+               if primary else None,
+               None, bound(2 * x.element_size() * x.numel(), 0),
+               streaming=offset is False and shape[-1] % 8 == 0, **extra)
+
+
+
+# ---------------------------------------------------------------------------
+# The flash forward on the tensor cores (csrc/mx_attention.cu).
+# ---------------------------------------------------------------------------
+# Edges of the flash forward beside its main shapes: (label, BH, G, Tq, Tk,
+# d, AttnSpec arguments).  T 300 is ragged against the kernel's 64-row
+# CTAs and blocks; d 128 takes its 32-row blocks; the chunked prefill is
+# the paged engine's last chunk of a 512-token prompt; Tk 1300 runs two
+# JAX tiles (kv_chunk 1024), so the carry folds a second tile; head dims
+# of 100 take the element loads and the warp cast (not multiples of 8).
+FLASH_FWD_EDGES = (
+    ("ragged T 300", 16, 1, 300, 300, 64, {}),
+    ("G 2", 16, 2, 512, 512, 64, {}),
+    ("window 128 with q_offset 64", 16, 2, 256, 320, 64,
+     dict(kind="window", window=128, q_offset=64)),
+    ("full mask Tq 300 Tk 200", 16, 1, 300, 200, 64, dict(kind="full")),
+    ("d 128", 16, 1, 256, 256, 128, {}),
+    ("chunked prefill Tq 64 q_offset 448", 8, 1, 64, 512, 64,
+     dict(q_offset=448)),
+    ("two JAX tiles causal Tk 1300", 4, 1, 1300, 1300, 64, {}),
+    ("two JAX tiles full Tk 1300", 4, 1, 1300, 1300, 64, dict(kind="full")),
+    ("head dims 100", 4, 1, 200, 200, 100, {}))
+# The bf16-mode forward's fp32 out against fp64 dense attention, per
+# element: FLASH_FWD_EPS times that element's bound, sum_k p_k |v_k| / l
+# (exact p).  A bf16 out hides a one-piece p inside its 2 ulps; the fp32
+# out does not: p as one bf16 piece is off by up to 2^-9 a term.
+FLASH_FWD_EPS = 256 * 2.0 ** -24
+FLASH_FWD_FAULT = "p as one bf16 piece"
+
+
+def butterfly_sum(s):
+    """Sums over the last axis (32) in mx_warp_sum's butterfly order, the
+    order of every holder of an MX block in the kernels."""
+    o = s.shape[-1] // 2
+    while o:
+        s = s[..., :o] + s[..., o:2 * o]
+        o //= 2
+    return s[..., 0]
+
+
+def butterfly_quantize(x, fmt, axis=-1, scale_mode="floor"):
+    """quantize_mx along ``axis`` with the adaptive rule's block errors
+    summed in the butterfly order (the kernels' cast, mx_quant.cuh);
+    "floor" and "bump" sum nothing and are quantize_mx itself."""
+    import torch
+    from repro_torch.core import quantize_mx
+    from repro_torch.core.formats import exp2_int, floor_log2, quantize_elem
+    from repro_torch.core.mx import block_reshape, block_unreshape
+    if fmt is None or scale_mode != "adaptive":
+        return quantize_mx(x, fmt, axis=axis, scale_mode=scale_mode)
+    xf = x.float()
+    xb, n = block_reshape(xf, axis, 32)
+    m = xb.abs().amax(-1)
+    e = floor_log2(torch.where(m > 0, m, torch.ones_like(m))) - fmt.e_max
+    err = [butterfly_sum(torch.square(
+        quantize_elem(xb / exp2_int(c)[..., None], fmt)
+        * exp2_int(c)[..., None] - xb)) for c in (e, e + 1)]
+    e = torch.clamp(torch.where(err[1] < err[0], e + 1, e), -126, 127)
+    e = torch.where(m > 0, e, torch.full_like(e, -126))[..., None]
+    y = block_unreshape(quantize_elem(xb / exp2_int(e), fmt) * exp2_int(e),
+                        axis, n)
+    return (xf + (y - xf)).to(x.dtype)
+
+
+def flash_fwd_split(q, k, v, fmt, spec, scale_mode="floor", pieces=3):
+    """The tensor-core flash forward's arithmetic in plain PyTorch ->
+    (out fp32, lse): the pre-pass casts q and k along d and v along kv in
+    32-row blocks aligned to each JAX tile's start (rows past the tile's
+    end zeros); per JAX tile, S from those exact bf16 operands (each score
+    rounded once to fp32, for the tensor cores' fp32 accumulators), pass
+    1's row max over the tile, then p = exp(s scale - m_new) (0 where
+    masked), l from the unquantized p, p cast per 32 columns in the
+    butterfly order (mx_mma_quant) in MX mode, or in bf16 mode taken as
+    ``pieces`` bf16 pieces (3: the kernel's split; 1: one bf16 rounding),
+    PV, and the fold acc corr + pv, l corr + lt."""
+    import torch
+    from repro_torch.kernels import ref
+    f64 = torch.float64
+
+    def Q(x, axis):
+        return butterfly_quantize(x.float(), fmt, axis, scale_mode)
+    BH, G, Tq, d = q.shape
+    Tk = k.shape[1]
+    tile_k = ref.attn_tiles(spec, Tq, Tk)[1]
+    scale = 1.0 / math.sqrt(d)
+    qh, kh = Q(q, -1), Q(k, -1)
+    valid_all = attn_valid(spec, Tq, Tk, q.device)
+    m = torch.full((BH, G, Tq), ref.NEG_INF, device=q.device)
+    l = torch.zeros((BH, G, Tq), device=q.device)
+    acc = torch.zeros((BH, G, Tq, v.shape[-1]), device=q.device)
+    for ts in range(0, Tk, tile_k):
+        te = min(ts + tile_k, Tk)
+        pad = (-(te - ts)) % 32
+        vt = torch.nn.functional.pad(v[:, ts:te].float(), (0, 0, 0, pad))
+        vh = Q(vt, -2)[:, :te - ts]
+        s = torch.einsum("bgqd,bkd->bgqk", qh.to(f64),
+                         kh[:, ts:te].to(f64)).float() * scale
+        valid = valid_all[:, ts:te]
+        s = torch.where(valid, s, ref.NEG_INF)
+        mn = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - mn[..., None]), 0.0)
+        corr = torch.exp(m - mn)
+        lt = p.sum(-1)
+        if fmt is not None:
+            pp = torch.nn.functional.pad(p, (0, pad))
+            pq = Q(pp, -1)[..., :te - ts]
+        else:
+            pq, r = torch.zeros_like(p, dtype=f64), p
+            for _ in range(pieces):
+                piece = r.to(torch.bfloat16).float()
+                pq, r = pq + piece.to(f64), r - piece
+        pv = torch.einsum("bgqk,bkd->bgqd", pq.to(f64), vh.to(f64)).float()
+        l = l * corr + lt
+        acc = acc * corr[..., None] + pv
+        m = mn
+    lc = torch.clamp(l, min=1e-30)
+    return acc / lc[..., None], m + torch.log(lc)
+
+
+def flash_fwd_dense(q, k, v, spec):
+    """bf16-mode attention in fp64 -> (out, bound): out = p v / l with
+    the exact softmax, bound = p |v| / l, the sum of its terms'
+    magnitudes (FLASH_FWD_EPS)."""
+    import torch
+    f64 = torch.float64
+    s = torch.einsum("bgqd,bkd->bgqk", q.to(f64), k.to(f64)) / math.sqrt(
+        q.shape[-1])
+    valid = attn_valid(spec, q.shape[2], k.shape[1], q.device)
+    s = torch.where(valid, s, -1e300)
+    p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True).clamp(min=1e-300)
+    return (torch.einsum("bgqk,bkd->bgqd", p, v.to(f64)) / l,
+            torch.einsum("bgqk,bkd->bgqd", p, v.to(f64).abs()) / l)
+
+
+def flash_fwd_worst(got, exact, bnd):
+    """The largest error of an fp32 out against the fp64 one over what its
+    element allows (FLASH_FWD_EPS of its bound)."""
+    return ((got.double() - exact).abs()
+            / (FLASH_FWD_EPS * bnd + 1e-300)).max().item()
+
+
+def flash_fwd_fp64_case(q, k, v, spec):
+    """The bf16-mode flash forward's fp32 out and its plain version's, each
+    held against fp64 dense attention (flash_fwd_worst): the kernel must
+    stay within max(1, twice the plain version's reading), call twice for
+    equal bits, and "p as one bf16 piece" (flash_fwd_split with one piece)
+    must exceed that limit.  Returns (ok, kernel worst, plain worst,
+    planted worst, replay)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    def fn():
+        return ops.mx_flash_attention(q, k, v, None, spec,
+                                      out_dtype=torch.float32)[0]
+    got = fn()
+    replay = torch.equal(got, fn())
+    plain = ref.mx_flash_attention_ref(q, k, v, None, spec,
+                                       out_dtype=torch.float32)[0]
+    planted = flash_fwd_split(q, k, v, None, spec, pieces=1)[0]
+    exact, bnd = flash_fwd_dense(q, k, v, spec)
+    kw, pw, fw = (flash_fwd_worst(x, exact, bnd) for x in (got, plain,
+                                                           planted))
+    limit = max(1.0, 2.0 * pw)
+    return kw <= limit < fw and replay, kw, pw, fw, replay
+
+
+# Near ties of the flash forward's p cast.  The kernel forms each score on
+# the tensor cores (bf16 products exact, fp32 sums that may truncate), the
+# plain version in its own fp32 GEMM: each score is within sqrt(d) 2^-24 of
+# the magnitudes of its terms, sum_i |q_i k_i| (gemm_check's measure), the
+# kernel's within twice that for its truncating sums.  Both then round
+# s scale and s scale - m once and take exp within 2 ulps, and m is a
+# score of the row, within the error of the row's largest term sum.  So
+# each p moves, relative, by at most its reach (p_reach).  Where an
+# element of p sits that close to a rounding midpoint of its cast, or a
+# 32-block that close to another shared exponent or adaptive choice, the
+# kernel can cast it one quantum away, and the output moves by that
+# quantum of p times |v|.  The plain version's own p is measured against
+# p from fp64 scores of the same operands and must lie within its share.
+SCORE_EPS = 2.0 ** -24
+
+
+def p_reach(qq, kq, s, m, valid, scale, tmax):
+    """Relative reach of each p = exp(s - m) of one JAX tile (s: the plain
+    version's scaled scores, m: the running max, tmax: each row's largest
+    scaled term sum so far) -> (reach of the kernel's p against the plain
+    version's, the plain version's share of it, tmax updated)."""
+    import torch
+    t = torch.where(valid, torch.einsum("bgqd,bkd->bgqk", qq.abs(),
+                                        kq.abs()) * scale, 0.0)
+    tmax = torch.maximum(tmax, t.amax(-1))
+    sv = torch.where(valid, s, 0.0)
+    rounds = sv.abs() + m.abs()[..., None] + (sv - m[..., None]).abs() + 2
+    terms = math.sqrt(qq.shape[-1]) * (t + tmax[..., None])
+    return (SCORE_EPS * (3 * terms + 2 * rounds),
+            SCORE_EPS * (terms + rounds), tmax)
+
+
+def flash_tie_slack(q, k, v, fmt, spec, mode="floor"):
+    """(slack, info).  slack (BH, G, Tq, dv) fp32: how far each output of
+    the plain flash forward can move when each p (per JAX tile, before the
+    cast) moves by its reach r (p_reach): sum_k |Q(p_k (1 +- r_k)) -
+    Q(p_k)| |Q(v)_k| / l, folded over the tiles as the plain version folds
+    acc; the row max's p = 1 holds still unless another p of its row lies
+    within reach of 1.  Under "adaptive" a block whose error difference
+    err1 - err0 such moves can change sign (by at most 2 sum_k r_k |Q1(p_k)
+    - Q0(p_k)| p_k, Q0 and Q1 the casts at e and e + 1), or the two sums'
+    orders can (TIE_EPS), counts the move to its other exponent.  Zero for
+    an output whose p holds no near tie.  info: the largest reach, the
+    largest measured gap of the plain p to fp64 (where p > 2^-100) and that
+    gap over its share of the reach, which must be at most 1 (else this
+    raises)."""
+    import torch
+    from repro_torch.core import quantize_mx
+    from repro_torch.core.formats import exp2_int, floor_log2, quantize_elem
+    from repro_torch.core.mx import block_reshape, block_unreshape
+    from repro_torch.kernels import ref
+    BH, G, Tq, d = q.shape
+    Tk = k.shape[1]
+    tile_k = ref.attn_tiles(spec, Tq, Tk)[1]
+    scale = 1.0 / math.sqrt(d)
+
+    def Q(x, axis):
+        return quantize_mx(x, fmt, axis=axis, scale_mode=mode)
+    qq, kq = Q(q.float(), -1), Q(k.float(), -1)
+    valid_all = attn_valid(spec, Tq, Tk, q.device)
+    m = torch.full((BH, G, Tq), ref.NEG_INF, device=q.device)
+    m64 = m.double()
+    tmax = torch.zeros_like(m)
+    l = torch.zeros_like(m)
+    slack = torch.zeros((BH, G, Tq, v.shape[-1]), device=q.device)
+    info = {"reach": 0.0, "gap": 0.0, "gap_over_share": 0.0}
+    for ts in range(0, Tk, tile_k):
+        te = min(ts + tile_k, Tk)
+        valid = valid_all[:, ts:te]
+        s = torch.where(valid, torch.einsum("bgqd,bkd->bgqk", qq,
+                                            kq[:, ts:te]) * scale,
+                        ref.NEG_INF)
+        mn = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - mn[..., None]), 0.0)
+        corr = torch.exp(m - mn)
+        r, share, tmax = p_reach(qq, kq[:, ts:te], s, mn, valid, scale, tmax)
+        s64 = torch.where(valid, torch.einsum(
+            "bgqd,bkd->bgqk", qq.double(), kq[:, ts:te].double()) * scale,
+            -1e300)
+        m64 = torch.maximum(m64, s64.amax(-1))
+        p64 = torch.exp(s64 - m64[..., None])
+        gap = torch.where(valid & (p64 > 2.0 ** -100),
+                          (p.double() / p64 - 1).abs(), 0.0)
+        info["reach"] = max(info["reach"], float(r.amax()))
+        info["gap"] = max(info["gap"], float(gap.amax()))
+        info["gap_over_share"] = max(info["gap_over_share"],
+                                     float((gap / share).amax()))
+        del s64, p64, gap, share
+        top = p.topk(min(2, p.shape[-1]), dim=-1).values[..., -1]
+        still = (p >= 1.0) & ((top < 1 - 2 * r.amax(-1)) | (p.shape[-1] < 2)
+                              )[..., None]
+        pq = Q(p, -1)
+        dev = torch.zeros_like(p)
+        for sign in (-1.0, 1.0):
+            moved = torch.where(still, p, p * (1 + sign * r))
+            dev = torch.maximum(dev, (Q(moved, -1) - pq).abs())
+        if mode == "adaptive":
+            pb, n = block_reshape(p, -1, 32)
+            rb = block_reshape(r, -1, 32)[0]
+            mx = pb.amax(-1, keepdim=True)
+            e0 = floor_log2(torch.where(mx > 0, mx, torch.ones_like(mx))
+                            ) - fmt.e_max
+            cast = [quantize_elem(pb / exp2_int(c), fmt) * exp2_int(c)
+                    for c in (e0, e0 + 1)]
+            err = [torch.square(c - pb).double().sum(-1, keepdim=True)
+                   for c in cast]
+            other = (cast[1] - cast[0]).abs()
+            reach = (2 * (rb * other * pb).double().sum(-1, keepdim=True)
+                     + TIE_EPS * (err[0] + err[1]))
+            tie = (err[1] - err[0]).abs() <= reach
+            dev = torch.maximum(dev, block_unreshape(
+                torch.where(tie, other, 0.0), -1, n))
+        vt = torch.nn.functional.pad(v[:, ts:te].float(),
+                                     (0, 0, 0, (-(te - ts)) % 32))
+        vq = Q(vt, -2)[:, :te - ts].abs()
+        l = l * corr + p.sum(-1)
+        slack = slack * corr[..., None] + torch.einsum("bgqk,bkd->bgqd",
+                                                       dev, vq)
+        m = mn
+    if info["gap_over_share"] > 1.0:
+        raise AssertionError(f"the plain flash forward's p lies outside its "
+                             f"share of the reach: {info}")
+    return slack / torch.clamp(l, min=1e-30)[..., None], info
+
+
+def attn_check_ties(out, want, floor: float, slack):
+    """attn_check with each element's tolerance widened by its near-tie
+    slack (flash_tie_slack)."""
+    err = (out.float() - want.float()).abs()
+    worst = (err / (2 * ulp_bf16(want.float()) + floor + slack)).max().item()
+    return worst <= 1.0, worst
+
+
+def flash_fwd_case(q, k, v, fmt, spec, mode="floor"):
+    """The flash forward kernel on one case against its plain version
+    (attn_check, in MX mode with the near-tie slack; lse within 1e-4), its
+    bf16 out against its fp32 out rounded once, and a second call for
+    equal bits.  Returns a dict: ok, worst, err, lse_err, replay, ties
+    (rows with a near tie), want, and the check's ``check`` (got -> (ok,
+    worst)) and ``reach`` (flash_tie_slack's info; None in bf16 mode)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    o, lse = ops.mx_flash_attention(q, k, v, fmt, spec, scale_mode=mode)
+    o2, lse2 = ops.mx_flash_attention(q, k, v, fmt, spec, scale_mode=mode)
+    of = ops.mx_flash_attention(q, k, v, fmt, spec, scale_mode=mode,
+                                out_dtype=torch.float32)[0]
+    replay = torch.equal(o, o2) and torch.equal(lse, lse2)
+    orf, lser = ref.mx_flash_attention_ref(q, k, v, fmt, spec,
+                                           scale_mode=mode)
+    floor = attn_floor(v, k.shape[1])
+    if fmt is None:
+        def check(got):
+            return attn_check(got, orf, floor)
+        n_ties, info = 0, None
+    else:
+        slack, info = flash_tie_slack(q, k, v, fmt, spec, mode)
+
+        def check(got):
+            return attn_check_ties(got, orf, floor, slack)
+        n_ties = int((slack > 0).any(-1).sum())
+        # how far the slack widens attn_check: the share of outputs it
+        # widens, and its largest over the element's own tolerance
+        info["widened"] = float((slack > 0).float().mean())
+        info["widen_max"] = float((slack / (2 * ulp_bf16(orf.float())
+                                            + floor)).max())
+    ok, worst = check(o)
+    lse_err = (lse - lser).abs().max().item()
+    rounded = torch.equal(of.to(o.dtype), o)
+    return {"ok": ok and lse_err <= 1e-4 and replay and rounded,
+            "worst": worst, "lse_err": lse_err, "replay": replay,
+            "err": (o.float() - orf.float()).abs().max().item(),
+            "ties": n_ties, "want": orf, "check": check, "reach": info}
+
+
+def reach_note(info) -> str:
+    """flash_tie_slack's info (and flash_fwd_case's), for a log line."""
+    return (f"p reach up to {info['reach']:.3g} (plain p against fp64: gap "
+            f"{info['gap']:.3g}, at most {info['gap_over_share']:.3f} of "
+            f"its share); the slack widens {info['widened']:.4f} of the "
+            f"outputs, up to {info['widen_max']:.1f}x their tolerance")
+
+
+def flash_bound(BH, G, Tq, Tk, d, dv, spec, device):
+    """bound() of a flash forward: q, k, v and out in bf16 and lse in fp32
+    moved once; 2 (d + dv) operations per valid score."""
+    n_valid = int(attn_valid(spec, Tq, Tk, device).sum()) * BH * G
+    return bound(2 * (BH * G * Tq * (d + dv) + BH * Tk * (d + dv))
+                 + 4 * BH * G * Tq, 2 * (d + dv) * n_valid)
+
+
+def flash_fwd_kernels(rnd, record, flush):
+    """The flash forward at the training shape (BH 64, G 1, T 512, d 64,
+    causal) in e4m3 (with the pre-pass's share) and bf16 mode (SDPA
+    beside it, and the fp32 out against fp64 attention with one-piece p
+    planted), then at FLASH_FWD_EDGES in both modes, each called twice for
+    equal bits."""
+    import torch
+    from repro_torch.core import E4M3, AttnSpec
+    from repro_torch.kernels import ops, ref
+
+    BH, T, d = 64, 512, 64
+    spec = AttnSpec()
+    q, k, v = rnd(BH, 1, T, d), rnd(BH, T, d), rnd(BH, T, d)
+    bnd = flash_bound(BH, 1, T, T, d, d, spec, q.device)
+    for fmt in (E4M3, None):
+        c = flash_fwd_case(q, k, v, fmt, spec)
+        if fmt is not None:   # the near-tie slack hides no planted fault
+            print(f"[kernels] flash train e4m3: {c['ties']} rows with a "
+                  f"near tie, {reach_note(c['reach'])}", flush=True)
+            check_controls("flash train", c["check"],
+                           lambda fault: planted_flash(q, k, v, fmt, fault),
+                           FLASH_FAULTS)
+        del c["check"]
+        ms, parts = time_parts_ms(
+            lambda: ops.mx_flash_attention(q, k, v, fmt, spec), 20, flush)
+        pre = sum(t for n, t in parts.items() if "cast" in n)
+        lib, extra = None, {"prepass_ms": pre, "prepass_share": pre / ms}
+        if fmt is None:
+            lib = time_ms(lambda: sdpa_flash(q[:, 0], k, v), 20, flush)
+            ok64, kw, pw, fw, rep = flash_fwd_fp64_case(q, k, v, spec)
+            print(f"[kernels] {'ok  ' if ok64 else 'FAIL'} flash forward "
+                  f"train bf16 fp32 out against fp64: kernel worst err/tol "
+                  f"{kw:.3f}, plain version {pw:.3f} (limit max(1, 2x "
+                  f"plain)), {FLASH_FWD_FAULT!r} {fw:.2f} "
+                  f"({'rejected' if fw > max(1.0, 2 * pw) else 'ACCEPTED'}"
+                  f"), replay equal {rep}", flush=True)
+            if not ok64:
+                raise AssertionError("flash forward bf16 against fp64 "
+                                     "disagrees")
+            extra.update(fp64_worst=kw, fp64_plain_worst=pw,
+                         fp64_planted_worst=fw, sdpa_ratio=ms / lib)
+        record("mx_flash_attention",
+               f"train BH{BH} G1 T{T} d{d} causal "
+               f"{'e4m3' if fmt else 'bf16'} (worst err/tol "
+               f"{c['worst']:.3f}, lse err {c['lse_err']:.2e}, replay "
+               f"equal {c['replay']})", False, c["err"], c["ok"], ms,
+               time_ms(lambda: ref.mx_flash_attention_ref(q, k, v, fmt,
+                                                          spec), 3, flush),
+               lib, bnd, near_tie_rows=c["ties"], **extra)
+    for label, BH, G, Tq, Tk, d, kw in FLASH_FWD_EDGES:
+        spec = AttnSpec(**kw)
+        q, k, v = rnd(BH, G, Tq, d), rnd(BH, Tk, d), rnd(BH, Tk, d)
+        for fmt in (E4M3, None):
+            c = flash_fwd_case(q, k, v, fmt, spec)
+            record("mx_flash_attention",
+                   f"edge {label}: BH{BH} G{G} Tq{Tq} Tk{Tk} d{d} "
+                   f"{'e4m3' if fmt else 'bf16'} (worst err/tol "
+                   f"{c['worst']:.3f}, lse err {c['lse_err']:.2e}, replay "
+                   f"equal {c['replay']})", False, c["err"], c["ok"],
+                   time_ms(lambda: ops.mx_flash_attention(q, k, v, fmt,
+                                                          spec), 10, flush),
+                   None, None, flash_bound(BH, G, Tq, Tk, d, d, spec,
+                                           q.device))
+        if d > 64:   # bf16 mode's fp32 out against fp64 at d 128 too
+            ok64, kw_, pw, fw, rep = flash_fwd_fp64_case(q, k, v, spec)
+            print(f"[kernels] {'ok  ' if ok64 else 'FAIL'} flash forward "
+                  f"{label} bf16 fp32 out against fp64: kernel worst "
+                  f"err/tol {kw_:.3f}, plain version {pw:.3f}, "
+                  f"{FLASH_FWD_FAULT!r} {fw:.2f}, replay equal {rep}",
+                  flush=True)
+            if not ok64:
+                raise AssertionError(f"flash forward {label} bf16 against "
+                                     "fp64 disagrees")
+
 
 
 # ---------------------------------------------------------------------------
@@ -1131,18 +1713,39 @@ def phase_scale_modes():
         del dy
         q, k, v = mi((8, 1, 512, 64), -1), mi((8, 512, 64), -1), mi(
             (8, 512, 64), -2)
-        o, lse = ops.mx_flash_attention(q, k, v, fmt, spec, scale_mode=mode)
-        orf, lser = ref.mx_flash_attention_ref(q, k, v, fmt, spec,
-                                               scale_mode=mode)
-        ok, worst = attn_check(o, orf, attn_floor(v, 512))
-        ok = ok and (lse - lser).abs().max().item() <= 1e-4
-        print(f"[scale-modes] {'ok  ' if ok else 'FAIL'} flash bucket 512 "
-              f"{mode}: worst err/tol {worst:.3f}", flush=True)
-        if not ok:
+        # attn_check with the near-tie slack of the p cast (flash_fwd_case),
+        # which must reject the mode's planted faults
+        c = flash_fwd_case(q, k, v, fmt, spec, mode)
+        print(f"[scale-modes] {'ok  ' if c['ok'] else 'FAIL'} flash bucket "
+              f"512 {mode}: worst err/tol {c['worst']:.3f}, lse err "
+              f"{c['lse_err']:.2e}, replay equal {c['replay']}, "
+              f"{c['ties']} rows with a near tie, {reach_note(c['reach'])}",
+              flush=True)
+        if not c["ok"]:
             raise AssertionError(f"flash forward {mode} disagrees")
+        check_controls(f"flash bucket 512 {mode}", c["check"],
+                       lambda fault: planted_flash(q, k, v, fmt, fault, mode),
+                       FLASH_MODE_FAULTS[mode])
         BH, T = 64, 512
         q, k, v = mi((BH, 1, T, 64), -1), mi((BH, T, 64), -1), mi(
             (BH, T, 64), -2)
+        # the operands' adaptive near ties, counted by the quantize kernel
+        # (the pre-pass casts q and k along d, v along kv, as it does)
+        ft = kernel_operands(((q, fmt, -1), (k, fmt, -1), (v, fmt, -2)),
+                             mode)[1]
+        c = flash_fwd_case(q, k, v, fmt, spec, mode)
+        print(f"[scale-modes] {'ok  ' if c['ok'] else 'FAIL'} flash forward "
+              f"BH{BH} T{T} {mode}: worst err/tol {c['worst']:.3f}, lse err "
+              f"{c['lse_err']:.2e}, replay equal {c['replay']}, {ft} "
+              f"adaptive near ties in q, k, v, {c['ties']} rows with a near "
+              f"tie of the p cast, {reach_note(c['reach'])}", flush=True)
+        if not c["ok"]:
+            raise AssertionError(f"flash forward BH{BH} {mode} disagrees")
+        check_controls(f"flash BH{BH} T{T} {mode}", c["check"],
+                       lambda fault: planted_flash(q, k, v, fmt, fault, mode),
+                       FLASH_MODE_FAULTS[mode])
+        del c
+        t += ft
         dout = mi((BH, 1, T, 64), -1, 1e-2)
         c = flash_bwd_case(q, k, v, dout, fmt, spec, mode)
         print(f"[scale-modes] {'ok  ' if c['ok'] else 'FAIL'} flash dgrad "
@@ -1253,7 +1856,6 @@ def training_kernels(rnd, record, flush):
     lm_head's training shape, and the flash dgrad at BH 64, T 512, d 64,
     causal, in e4m3 and bf16."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core import E4M3, E5M2, AttnSpec
     from repro_torch.kernels import ops, ref
 
@@ -1392,10 +1994,10 @@ def training_kernels(rnd, record, flush):
                     raise AssertionError(f"flash dgrad: the check accepts "
                                          f"the planted fault {fault!r}")
         lib = None
-        if fmt is None:   # bf16 mode: PyTorch's attention backward
+        if fmt is None:   # bf16 mode: PyTorch's FlashAttention backward
             qs, ks, vs = (t.detach().requires_grad_(True)
                           for t in (q[:, 0], k, v))
-            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            o = sdpa_flash(qs, ks, vs)
             lib = time_ms(lambda: torch.autograd.grad(
                 o, (qs, ks, vs), dout[:, 0], retain_graph=True), 20, flush)
         record("mx_flash_attention_bwd",
@@ -2440,7 +3042,8 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "case": row["case"], "cases": row["cases"]})
+            "timing": row["timing"], "case": row["case"],
+            "cases": row["cases"]})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -7,34 +7,58 @@
 //   `_mx_attn_decode_body` :364-381) and `mx_attn_decode_paged_pallas`
 //   (:407, pallas_call at :445; body `_mx_attn_decode_paged_kernel`
 //   :384-404).
-// Bound: all three are memory- and latency-bound at the serve path's
-//   shapes.  Prefill attention at d = 64 does ~4 d operations per score,
-//   far below the H100's ~295 operations per byte.  Decode must move the
-//   K rows of the valid slots (a masked slot's score is dropped whatever
-//   its K row holds), the V rows of every slot (v is cast along S over
-//   all of them), q, out and the validity mask once (3.4 MB at B 4, H 8,
-//   S 512 with the serve path's positions: 1.02 µs over 3.35 TB/s); paged
-//   decode the same, with V over the mapped pages, and the page table.
-//   This kernel still loads and casts the K rows of masked slots: reading
-//   the mask first would add a dependent round trip.  Both are held back
-//   by latency: a call is a few dependent round trips.
+// Bound: the flash forward is bytes-bound at the training shape (BH 64,
+//   T 512, d 64 causal: q, k, v and out in bf16 and lse in fp32, 16.9 MB,
+//   5.0 µs at 3.35 TB/s, against 2.15 GFLOP of useful products, 2.2 µs at
+//   the bf16 peak; chip_smoke.py reckons both); the tensor work as built is
+//   larger (S formed twice per JAX tile, and in bf16 mode PV three times:
+//   3 and 5 product units against the 2 of one QK and one PV).  Decode is
+//   memory- and latency-bound at the serve path's shapes: it must move
+//   the K rows of the valid slots (a masked slot's score is dropped
+//   whatever its K row holds), the V rows of every slot (v is cast along S
+//   over all of them), q, out and the validity mask once (3.4 MB at B 4,
+//   H 8, S 512 with the serve path's positions: 1.02 µs over 3.35 TB/s);
+//   paged decode the same, with V over the mapped pages, and the page
+//   table.  The decode kernel still loads and casts the K rows of masked
+//   slots: reading the mask first would add a dependent round trip.  It
+//   is held back by latency: a call is a few dependent round trips.
+// Includes: mx_mma.cuh (the tensor-core and copy helpers, shared with the
+//   flash dgrad in mx_attention_bwd.cu) and mx_quant.cuh (the cast).
 // Design:
-//   * Flash forward.  In MX mode the unnormalized p is quantized after the
-//     rescale by the running max over the whole JAX kv tile
-//     (tile_k = min(kv_chunk, Tk)), so one tile's max must be known before
-//     any of its p is quantized.  Each JAX tile is walked twice in 32-row
-//     blocks: pass 1 finds each row's max over the tile, pass 2 recomputes
-//     the scores, forms p = exp(s - m_new) (exactly 0 where masked), adds
-//     the unquantized p to l, quantizes p per 32-block (one warp's lanes,
-//     blocks aligned to the tile start) and accumulates Q(p) Q(v).  The
-//     tile's l and PV are folded into the carry as acc*corr + pv, as the
-//     reference does.  v is quantized along kv over every row of its
-//     32-block, masked or not; only rows past the tile end are zeros.  A
-//     block that is masked for every row of the CTA is skipped, which is
-//     bitwise the same as computing it (p = 0 there).  One CTA holds 16
-//     query rows of one (bh, g): 4 warps x 4 rows, lane = kv row in a
-//     block.  Out is acc / max(l, 1e-30) in bf16; lse = m + log(max(l,
-//     1e-30)) in fp32.  In bf16 mode (no format) p stays fp32 for PV.
+//   * Flash forward, on the tensor cores.  In MX mode a pre-pass casts q
+//     and k along d and v along kv into a bf16 scratch (the wrapper's
+//     `qkv_hat`), where the cast values are exact; v in 32-row blocks
+//     aligned to each JAX kv tile's start (tile_k = min(kv_chunk, Tk)),
+//     every row cast, masked or not, rows past the tile's end zeros.  With
+//     16-byte rows four lanes hold a 32-block, 8 elements a lane
+//     (`mx_quad_quant`: for v, 8 rows of 8 columns a lane, one 16-byte
+//     load a row), else a warp a block.  bf16 mode reads q, k, v in place.
+//     The main kernel: a CTA per (bh, g, 64 query rows), 4 warps of 16
+//     rows, the CTAs of the last rows issued first under a causal or
+//     window mask (they hold the most blocks).  The unnormalized p is
+//     quantized after the rescale by the running max over the whole JAX
+//     tile, so each tile is walked twice in blocks of 64 kv rows (32 for
+//     head dims above 64): pass 1 forms S = Q^ K^T on `mma.sync` m16n8k16
+//     (bf16 in, fp32 accumulators) and each row's max over the tile, in
+//     registers and then across the four lanes of a quad; pass 2 forms S
+//     again and p = exp(s scale - m_new) (exactly 0 where masked), adds
+//     the unquantized p to the lane's share of l in a fixed order, casts
+//     p per 32 columns in the accumulators' layout (`mx_mma_quant`: the
+//     warp butterfly's sums, so every scale rule chooses as the other
+//     kernels do), and accumulates PV on `mma.sync` with the accumulators
+//     as the A operand: Q(p) in one bf16 piece (exact but for MX values
+//     below bf16's smallest subnormal, 2^-133, which only a block whose
+//     max p lies below 2^-102 can hold, 2^-116 in e4m3; bf16 rounds such
+//     a value by at most 2^-134, which moves out by at most 2^-134 max|v|
+//     since l >= 1), or in bf16 mode the fp32 p as three bf16 pieces
+//     (`bw_pieces`, all 24 bits).  K and V blocks arrive by double-
+//     buffered cp.async (K alone in pass 1), read with `ldmatrix`.  At the
+//     tile's end l = l corr + lt and acc = acc corr + pv, as the reference
+//     folds.  A block that the mask rules out for every row of the CTA is
+//     skipped, which is bitwise the same as computing it (p = 0 there).
+//     Out is acc / max(l, 1e-30) in bf16 (fp32 when asked: the bf16 out
+//     before its one rounding); lse = m + log(max(l, 1e-30)) in fp32.  No
+//     atomics: a second call gives equal bits.
 //   * Decode, split over a thread-block cluster.  The *normalized* p is
 //     quantized along S (32-blocks) and v along S over every slot, valid
 //     or not, so the view's max and sum must be known before any p is
@@ -74,194 +98,332 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mx_mma.cuh"
 #include "mx_quant.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 constexpr int MAXD = 128;
-constexpr int FA_WARPS = 4;
-constexpr int FA_RPW = 4;                    // query rows per warp
-constexpr int FA_ROWS = FA_WARPS * FA_RPW;   // query rows per CTA
+constexpr int FW_THREADS = 128;   // 4 warps of 16 query rows
+constexpr int FW_BM = 64;         // query rows of a CTA
+constexpr int FW_PREP = 256;      // threads of a pre-pass CTA
 constexpr int MAXG = 8;
 constexpr int DEC_THREADS = 128;   // a decode CTA
 constexpr int DEC_KB = 4;          // K loads a thread keeps in flight
 constexpr int DEC_MAX_SMEM = 227 * 1024;   // a CTA's opt-in limit
 constexpr float NEG_INF = -1e30f;
 enum { KIND_CAUSAL = 0, KIND_FULL = 1, KIND_WINDOW = 2 };
+
+// Shapes of the forward's tiles for a padded head dim D (a multiple of 32).
+template <int D>
+struct FwTile {
+  static constexpr int LD = D + 8;              // smem row stride (bf16)
+  static constexpr int BN = D > 64 ? 32 : 64;   // kv rows of a block
+  static constexpr int NT = BN / 8;             // n-tiles of S
+  static constexpr int KS = D / 16;             // k-steps over the head dim
+  static constexpr int DT = D / 8;              // n-tiles of PV
+  static constexpr int SMEM = 2 * (FW_BM * LD + 2 * 2 * BN * LD);
+};
 }  // namespace
 
-__device__ __forceinline__ bool attn_valid(int kind, int window, int qpos,
-                                           int kpos, int kv_len) {
-  bool ok = kpos < kv_len;
-  if (kind != KIND_FULL) ok = ok && qpos >= kpos;
-  if (kind == KIND_WINDOW) ok = ok && kpos > qpos - window;
-  return ok;
+// Pre-pass, MX mode: the q rows (qrows of them) and the k rows (krows)
+// cast along d into qh and kh.  vec (d a multiple of 8, 16-byte aligned
+// rows): four lanes a 32-block, 8 elements a lane (mx_quad_quant);
+// otherwise a warp a 32-block (mx_warp_quant).
+__global__ void __launch_bounds__(FW_PREP)
+mx_flash_fwd_cast_rows(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       bf16* __restrict__ qh, bf16* __restrict__ kh,
+                       long long qrows, long long krows, int d, int vec,
+                       MxFmt f) {
+  const long long nb = (d + 31) / 32, tasks = (qrows + krows) * nb;
+  const long long tid = (long long)blockIdx.x * FW_PREP + threadIdx.x;
+  const long long t = vec ? tid >> 2 : tid >> 5;   // this lane's block
+  const long long row = t / nb;
+  const bool is_q = row < qrows;
+  const long long r = is_q ? row : row - qrows;
+  const bf16* src = (is_q ? q : k) + r * d;
+  bf16* dst = (is_q ? qh : kh) + r * d;
+  const int c0 = (int)(t - row * nb) * 32;
+  if (vec) {
+    const int c = c0 + 8 * (int)(tid & 3);
+    const bool in = t < tasks && c < d;
+    float x[8];
+    mx_unpack8(in ? *reinterpret_cast<const uint4*>(src + c)
+                  : make_uint4(0u, 0u, 0u, 0u), x);
+    mx_quad_quant(x, f);   // every lane takes part in the shuffles
+    if (in) *reinterpret_cast<uint4*>(dst + c) = mx_pack8(x);
+  } else {
+    const int c = c0 + (int)(tid & 31);
+    const bool in = t < tasks && c < d;
+    const float x = mx_warp_quant(in ? __bfloat162float(src[c]) : 0.f, f);
+    if (in) dst[c] = __float2bfloat16_rn(x);
+  }
 }
 
-template <int DVL>
-__global__ void __launch_bounds__(FA_WARPS * 32)
-mx_flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                    int G, int Tq, int Tk, int d, int dv, int kind,
-                    int window, int q_offset, int tile_k, int has_fmt,
-                    MxFmt f, float scale) {
-  __shared__ float qs[FA_ROWS][MAXD];
-  __shared__ float ks[32][MAXD + 1];
-  __shared__ float vs[32][MAXD + 1];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.z, g = blockIdx.y, r0 = blockIdx.x * FA_ROWS;
-  const long long qrow0 = ((long long)bh * G + g) * Tq;
-  const __nv_bfloat16* kb = k + (long long)bh * Tk * d;
-  const __nv_bfloat16* vb = v + (long long)bh * Tk * dv;
-
-  // Q rows, quantized along d (warp per row, lanes along d).
-  for (int r = warp; r < FA_ROWS; r += FA_WARPS) {
-    const int i = r0 + r;
-    for (int c0 = 0; c0 < d; c0 += 32) {
-      const int c = c0 + lane;
-      float x = (i < Tq && c < d)
-                    ? __bfloat162float(q[(qrow0 + i) * d + c]) : 0.f;
-      if (has_fmt) x = mx_warp_quant(x, f);
-      if (c < d) qs[r][c] = x;
-    }
-  }
-
-  float m[FA_RPW], l[FA_RPW], acc[FA_RPW][DVL];
+// Pre-pass, MX mode: v (BH, Tk, dv) cast along kv into vh, in 32-row
+// blocks aligned to each JAX tile's start (tile_k rows a tile); rows past
+// the tile's end (or Tk) are zeros in the cast, as the reference pads.
+// vec (dv a multiple of 8, 16-byte aligned rows): four lanes hold a block
+// of 8 value columns, 8 rows a lane (rows 8 (lane & 3) + i), one 16-byte
+// load a row, and cast each column with mx_quad_quant; otherwise a warp a
+// (block, column), lane = row.
+__global__ void __launch_bounds__(FW_PREP)
+mx_flash_fwd_cast_v(const bf16* __restrict__ v, bf16* __restrict__ vh,
+                    int BH, int Tk, int dv, int tile_k, int vec, MxFmt f) {
+  const int bpt = (tile_k + 31) / 32, nk = (Tk + tile_k - 1) / tile_k;
+  const int cols = vec ? (dv + 7) / 8 : dv;   // column tasks of a block
+  const long long tasks = (long long)BH * nk * bpt * cols;
+  const long long tid = (long long)blockIdx.x * FW_PREP + threadIdx.x;
+  const long long t = vec ? tid >> 2 : tid >> 5;
+  const int col = (int)(t % cols);
+  const long long blk = t / cols;
+  const int bh = (int)(blk / ((long long)nk * bpt));
+  const int tile = (int)(blk / bpt % nk), ib = (int)(blk % bpt);
+  const int rs = tile * tile_k + ib * 32;            // block start
+  const int re = min(min((tile + 1) * tile_k, Tk), rs + 32);   // rows in
+  const bf16* src = v + (long long)bh * Tk * dv;
+  bf16* dst = vh + (long long)bh * Tk * dv;
+  if (vec) {
+    const int c = col * 8, r0 = rs + 8 * (int)(tid & 3);
+    const bool live = t < tasks;
+    float x[8][8];   // x[column][row]
 #pragma unroll
-  for (int rr = 0; rr < FA_RPW; ++rr) {
-    m[rr] = NEG_INF;
-    l[rr] = 0.f;
+    for (int i = 0; i < 8; ++i) {
+      const bf16* at = src + (long long)(r0 + i) * dv + c;
+      float row[8];
+      mx_unpack8(live && r0 + i < re ? *reinterpret_cast<const uint4*>(at)
+                                     : make_uint4(0u, 0u, 0u, 0u), row);
 #pragma unroll
-    for (int c = 0; c < DVL; ++c) acc[rr][c] = 0.f;
-  }
-  const int qfirst = r0 + q_offset;
-  const int qlast = min(r0 + FA_ROWS, Tq) - 1 + q_offset;
-
-  // Loads a 32-row K block [bs, be) quantized along d into ks, and, with
-  // with_v, the V block quantized down its rows into vs.  Rows past `be`
-  // are zeros (the reference's padding).
-  auto load_block = [&](int bs, int be, bool with_v) {
-    for (int i = tid; i < 32 * d; i += FA_WARPS * 32) {
-      const int rr = i / d, t = i % d;
-      ks[rr][t] = (bs + rr < be)
-                      ? __bfloat162float(kb[(long long)(bs + rr) * d + t])
-                      : 0.f;
+      for (int e = 0; e < 8; ++e) x[e][i] = row[e];
     }
-    if (with_v)
-      for (int i = tid; i < 32 * dv; i += FA_WARPS * 32) {
-        const int rr = i / dv, t = i % dv;
-        vs[rr][t] = (bs + rr < be)
-                        ? __bfloat162float(vb[(long long)(bs + rr) * dv + t])
-                        : 0.f;
-      }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) mx_quad_quant(x[e], f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float row[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) row[e] = x[e][i];
+      if (live && r0 + i < re)
+        *reinterpret_cast<uint4*>(dst + (long long)(r0 + i) * dv + c) =
+            mx_pack8(row);
+    }
+  } else {
+    const int r = rs + (int)(tid & 31);
+    const bool in = t < tasks && r < re;
+    const float x = mx_warp_quant(
+        in ? __bfloat162float(src[(long long)r * dv + col]) : 0.f, f);
+    if (in) dst[(long long)r * dv + col] = __float2bfloat16_rn(x);
+  }
+}
+
+// One step of the forward's walk: kv block [bs, bs + BN) of the JAX tile
+// starting at ts, in pass 1 (K alone) or pass 2 (K and V).
+struct FwStep {
+  int ts, pass, bs;
+};
+
+template <int D, typename OutT>
+__global__ void __launch_bounds__(FW_THREADS)
+mx_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, OutT* __restrict__ out,
+                    float* __restrict__ lse, int G, int Tq, int Tk, int d,
+                    int dv, int kind, int window, int q_offset, int tile_k,
+                    int vec, int has_fmt, MxFmt f, float scale) {
+  using C = FwTile<D>;
+  constexpr int LD = C::LD, BN = C::BN, NT = C::NT, DT = C::DT;
+  extern __shared__ __align__(16) unsigned char fw_sm[];
+  bf16* sQ = (bf16*)fw_sm;          // [64][LD] own rows
+  bf16* stage = sQ + FW_BM * LD;    // 2 x {k, v} [BN][LD]
+  auto st = [&](int s, int which) { return stage + (s * 2 + which) * BN * LD; };
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int bhg = blockIdx.x, bh = bhg / G;
+  // The CTAs of the last query rows hold the most live blocks under a
+  // causal or window mask: they are issued first.
+  const int qblk = kind == KIND_FULL ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
+  const int r0 = qblk * FW_BM;
+  const long long row0 = (long long)bhg * Tq + r0;
+  const int nrows = min(FW_BM, Tq - r0);
+  const bf16* kb = k + (long long)bh * Tk * d;
+  const bf16* vb = v + (long long)bh * Tk * dv;
+  const int qa = r0 + q_offset, qb = r0 + nrows - 1 + q_offset;
+
+  mma_tile<D / 8, LD, FW_THREADS>(sQ, q + row0 * d, d, FW_BM, nrows, d, vec);
+
+  auto tile_end = [&](int ts) { return min(ts + tile_k, Tk); };
+  // The first live block of tile ts at or after bs (the tile's end if none).
+  auto live_from = [&](int ts, int bs) {
+    const int te = tile_end(ts);
+    while (bs < te &&
+           !bw_live(kind, window, qa, qb, bs, min(bs + BN, te) - 1))
+      bs += BN;
+    return bs;
+  };
+  // The first step of the first tile at or after ts that holds a live
+  // block ({Tk, 0, 0} when none is left).
+  auto tile_from = [&](int ts) {
+    for (; ts < Tk && (kind == KIND_FULL || ts <= qb); ts += tile_k) {
+      const int bs = live_from(ts, ts);
+      if (bs < tile_end(ts)) return FwStep{ts, 0, bs};
+    }
+    return FwStep{Tk, 0, 0};
+  };
+  auto next = [&](FwStep c) {
+    const int bs = live_from(c.ts, c.bs + BN);
+    if (bs < tile_end(c.ts)) return FwStep{c.ts, c.pass, bs};
+    if (c.pass == 0) return FwStep{c.ts, 1, live_from(c.ts, c.ts)};
+    return tile_from(c.ts + tile_k);
+  };
+  auto load = [&](int s, FwStep c) {
+    const int n = min(BN, tile_end(c.ts) - c.bs);   // rows past it: zeros
+    mma_tile<D / 8, LD, FW_THREADS>(st(s, 0), kb + (long long)c.bs * d, d,
+                                    BN, n, d, vec);
+    if (c.pass)
+      mma_tile<D / 8, LD, FW_THREADS>(st(s, 1), vb + (long long)c.bs * dv,
+                                      dv, BN, n, dv, vec);
+  };
+
+  // Two rows a lane: h = 0 is row gq of the warp's 16, h = 1 row gq + 8.
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float mt[2], mn[2], corr[2], lp[2];
+  float acc[DT][4], pv[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  FwStep cur = tile_from(0);
+  if (cur.ts < Tk) load(0, cur);
+  bw_commit();
+  int s = 0;
+  bool first = true;   // the first step of a tile's pass
+  while (cur.ts < Tk) {
+    const FwStep nx = next(cur);
+    if (nx.ts < Tk) load(s ^ 1, nx);
+    bw_commit();
+    bw_wait<1>();
     __syncthreads();
-    if (has_fmt) {
-      for (int rr = warp; rr < 32; rr += FA_WARPS)
-        for (int c0 = 0; c0 < d; c0 += 32) {
-          const int c = c0 + lane;
-          const float x = mx_warp_quant(c < d ? ks[rr][c] : 0.f, f);
-          if (c < d) ks[rr][c] = x;
-        }
-      if (with_v)   // a warp per value column, lane = kv row
-        for (int c = warp; c < dv; c += FA_WARPS)
-          vs[lane][c] = mx_warp_quant(vs[lane][c], f);
-    }
-    __syncthreads();
-  };
-
-  // Masked score of (row r of this CTA, kv row bs + lane).
-  auto score = [&](int r, int bs, int be, bool& ok) {
-    const int kpos = bs + lane;
-    ok = kpos < be &&
-         attn_valid(kind, window, r0 + r + q_offset, kpos, Tk);
-    float dot = 0.f;
-    for (int t = 0; t < d; ++t) dot = fmaf(qs[r][t], ks[lane][t], dot);
-    return ok ? dot * scale : NEG_INF;
-  };
-
-  auto block_live = [&](int bs, int be) {
-    if (kind == KIND_FULL) return true;
-    if (bs > qlast) return false;
-    if (kind == KIND_WINDOW && be - 1 <= qfirst - window) return false;
-    return true;
-  };
-
-  for (int ts = 0; ts < Tk; ts += tile_k) {
-    const int te = min(ts + tile_k, Tk);
-    // Pass 1: each row's max over the whole JAX tile.
-    float mt[FA_RPW];
+    const int be = min(cur.bs + BN, tile_end(cur.ts));
+    if (first && cur.pass == 0) {
+      mt[0] = mt[1] = NEG_INF;
+    } else if (first) {   // pass 2 of this tile begins: the tile's max known
 #pragma unroll
-    for (int rr = 0; rr < FA_RPW; ++rr) mt[rr] = NEG_INF;
-    for (int bs = ts; bs < te; bs += 32) {
-      const int be = min(bs + 32, te);
-      if (!block_live(bs, be)) continue;
-      load_block(bs, be, false);
-#pragma unroll
-      for (int rr = 0; rr < FA_RPW; ++rr) {
-        const int r = warp * FA_RPW + rr;
-        if (r0 + r >= Tq) continue;  // warp-uniform
-        bool ok;
-        mt[rr] = mx_nanmax(mt[rr], mx_warp_max(score(r, bs, be, ok)));
+      for (int h = 0; h < 2; ++h) {
+        mn[h] = mx_nanmax(m[h], mt[h]);
+        corr[h] = expf(__fsub_rn(m[h], mn[h]));
+        lp[h] = 0.f;
       }
-      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[j][e] = 0.f;
     }
-    float mn[FA_RPW], corr[FA_RPW], lt[FA_RPW], pv[FA_RPW][DVL];
+    float x[NT][4];
+    mma_scores<NT, C::KS, LD>(x, sQ, st(s, 0), warp, lane);
+    if (cur.pass == 0) {   // each row's max over the tile
+      float rm[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int rr = 0; rr < FA_RPW; ++rr) {
-      mn[rr] = mx_nanmax(m[rr], mt[rr]);
-      corr[rr] = expf(m[rr] - mn[rr]);
-      lt[rr] = 0.f;
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int c = 0; c < DVL; ++c) pv[rr][c] = 0.f;
-    }
-    // Pass 2: p, l and the quantized PV product.
-    for (int bs = ts; bs < te; bs += 32) {
-      const int be = min(bs + 32, te);
-      if (!block_live(bs, be)) continue;
-      load_block(bs, be, true);
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, r = warp * 16 + gq + 8 * h;
+          const int col = cur.bs + 8 * j + 2 * tq + (e & 1);
+          const bool ok = col < be &&
+                          bw_valid(kind, window, r0 + r + q_offset, col);
+          rm[h] = mx_nanmax(rm[h], ok ? __fmul_rn(x[j][e], scale) : NEG_INF);
+        }
 #pragma unroll
-      for (int rr = 0; rr < FA_RPW; ++rr) {
-        const int r = warp * FA_RPW + rr;
-        if (r0 + r >= Tq) continue;  // warp-uniform
-        bool ok;
-        const float s = score(r, bs, be, ok);
-        const float p = ok ? expf(s - mn[rr]) : 0.f;
-        lt[rr] += mx_warp_sum(p);
-        const float pq = has_fmt ? mx_warp_quant(p, f) : p;
-        for (int j = 0; j < 32; ++j) {
-          const float pj = __shfl_sync(0xffffffffu, pq, j);
+      for (int h = 0; h < 2; ++h) {
+        rm[h] = mx_nanmax(rm[h], __shfl_xor_sync(0xffffffffu, rm[h], 1));
+        rm[h] = mx_nanmax(rm[h], __shfl_xor_sync(0xffffffffu, rm[h], 2));
+        mt[h] = mx_nanmax(mt[h], rm[h]);
+      }
+    } else {
+      // p = exp(s - m_new), exactly 0 where masked; the unquantized p into
+      // this lane's share of l, in a fixed order.
 #pragma unroll
-          for (int c = 0; c < DVL; ++c)
-            pv[rr][c] = fmaf(pj, vs[j][lane + 32 * c], pv[rr][c]);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, r = warp * 16 + gq + 8 * h;
+          const int col = cur.bs + 8 * j + 2 * tq + (e & 1);
+          const bool ok = col < be &&
+                          bw_valid(kind, window, r0 + r + q_offset, col);
+          const float p =
+              ok ? expf(__fsub_rn(__fmul_rn(x[j][e], scale), mn[h])) : 0.f;
+          lp[h] = __fadd_rn(lp[h], p);
+          x[j][e] = p;
+        }
+      if (has_fmt) {   // p cast per 32 columns, blocks aligned to the tile
+#pragma unroll
+        for (int bb = 0; bb < BN / 32; ++bb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float pb[8];
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              pb[2 * t] = x[4 * bb + t][2 * h];
+              pb[2 * t + 1] = x[4 * bb + t][2 * h + 1];
+            }
+            mx_mma_quant(pb, f);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              x[4 * bb + t][2 * h] = pb[2 * t];
+              x[4 * bb + t][2 * h + 1] = pb[2 * t + 1];
+            }
+          }
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {   // Q(p), exact in bf16
+          uint32_t a[1][4];
+          bw_one_piece(x[2 * kk], x[2 * kk + 1], a[0]);
+          mma_step<DT, LD, 1>(pv, a, st(s, 1), kk, lane);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {   // fp32 p as three pieces
+          uint32_t a[3][4];
+          bw_pieces(x[2 * kk], x[2 * kk + 1], a[0], a[1], a[2]);
+          mma_step<DT, LD, 3>(pv, a, st(s, 1), kk, lane);
         }
       }
-      __syncthreads();
     }
+    first = nx.ts != cur.ts || nx.pass != cur.pass;
+    if (cur.pass == 1 && first) {   // the tile's end: fold it into the carry
 #pragma unroll
-    for (int rr = 0; rr < FA_RPW; ++rr) {
-      l[rr] = l[rr] * corr[rr] + lt[rr];
+      for (int h = 0; h < 2; ++h) {
+        float lt = lp[h];
+        lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 1));
+        lt = __fadd_rn(lt, __shfl_xor_sync(0xffffffffu, lt, 2));
+        l[h] = __fadd_rn(__fmul_rn(l[h], corr[h]), lt);
+        m[h] = mn[h];
+      }
 #pragma unroll
-      for (int c = 0; c < DVL; ++c) acc[rr][c] = acc[rr][c] * corr[rr] + pv[rr][c];
-      m[rr] = mn[rr];
+      for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] = __fadd_rn(__fmul_rn(acc[j][e], corr[e >> 1]), pv[j][e]);
     }
+    __syncthreads();   // this stage's reads are done before it is refilled
+    s ^= 1;
+    cur = nx;
   }
-
+  bw_wait<0>();
 #pragma unroll
-  for (int rr = 0; rr < FA_RPW; ++rr) {
-    const int i = r0 + warp * FA_RPW + rr;
-    if (i >= Tq) continue;
-    const float lc = fmaxf(l[rr], 1e-30f);
+  for (int h = 0; h < 2; ++h) {
+    const int r = warp * 16 + gq + 8 * h;
+    if (r >= nrows) continue;
+    const float lc = fmaxf(l[h], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < DVL; ++c) {
-      const int col = lane + 32 * c;
-      if (col < dv)
-        out[(qrow0 + i) * dv + col] = __float2bfloat16_rn(acc[rr][c] / lc);
-    }
-    if (lane == 0) lse[qrow0 + i] = m[rr] + logf(lc);
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int col = 8 * j + 2 * tq + b;
+        if (col < dv)
+          mx_store<OutT>(out + (row0 + r) * dv + col,
+                         __fdiv_rn(acc[j][2 * h + b], lc));
+      }
+    if (tq == 0) lse[row0 + r] = __fadd_rn(m[h], logf(lc));
   }
 }
 
@@ -285,13 +447,6 @@ __device__ __forceinline__ long long dec_row(const DecRows& r, long long sb,
     return phys * sb + (long long)(s % r.ps) * ss + h * sh;
   }
   return b * sb + (long long)s * ss + h * sh;
-}
-
-__device__ __forceinline__ void dec_cp16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
 }
 
 // x[i] of every rank's shared memory (ranks below `splits`), all loads
@@ -371,14 +526,14 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = i / vch, c = (i % vch) * 8;
     __nv_bfloat16* dst = vs + r * dvs + c;
     if (vec && r < n) {
-      dec_cp16(dst, vrow(s0 + r) + c);
+      bw_cp16(dst, vrow(s0 + r) + c, 16);
     } else {
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         dst[e] = (r < n && c + e < dv) ? vrow(s0 + r)[c + e] : zero;
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  bw_commit();
 
   // Scores of all G query heads: a K row is LPR lanes of 8 elements, cast
   // along d in place (mx_quad_quant: 4 lanes a 32-block); a thread issues
@@ -419,15 +574,8 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
         const uint4 chunk = seg == 0 ? raw[u]
                             : r < n ? dec_chunk(krow(s0 + r), c, d, vec)
                                     : make_uint4(0u, 0u, 0u, 0u);
-        const __nv_bfloat162* h2 =
-            reinterpret_cast<const __nv_bfloat162*>(&chunk);
         float x[8];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 p2 = __bfloat1622float2(h2[e]);
-          x[2 * e] = p2.x;
-          x[2 * e + 1] = p2.y;
-        }
+        mx_unpack8(chunk, x);
         if (has_fmt) mx_quad_quant(x, f);
 #pragma unroll
         for (int gg = 0; gg < MAXG; ++gg) {
@@ -502,7 +650,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
     if (has_fmt) pr = mx_warp_quant(pr, f);
     sc[gg * span + i] = pr;
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  bw_wait<0>();
   __syncthreads();
 
   // Partial PV: four lanes a value column, eight slots of each 32-block a
@@ -552,39 +700,88 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
   cluster.sync();   // every rank's shared memory lives until rank 0 is done
 }
 
-static int dv_lanes(int dv) { return (dv + 31) / 32; }
+template <int D, typename OutT>
+static int fw_launch(const bf16* q, const bf16* k, const bf16* v, void* out,
+                     float* lse, int BH, int G, int Tq, int Tk, int d, int dv,
+                     int kind, int window, int q_offset, int tile_k, int vec,
+                     int has_fmt, const MxFmt& f, float scale,
+                     cudaStream_t s) {
+  constexpr int smem = FwTile<D>::SMEM;
+  auto kern = mx_flash_fwd_kernel<D, OutT>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       smem);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  dim3 grid((unsigned)(BH * G), (unsigned)((Tq + FW_BM - 1) / FW_BM));
+  kern<<<grid, FW_THREADS, smem, s>>>(q, k, v, (OutT*)out, lse, G, Tq, Tk, d,
+                                      dv, kind, window, q_offset, tile_k, vec,
+                                      has_fmt, f, scale);
+  return (int)cudaGetLastError();
+}
 
+// q (BH,G,Tq,d), k (BH,Tk,d), v (BH,Tk,dv) bf16, contiguous; out
+// (BH,G,Tq,dv) bf16, or fp32 with out_fp32; lse (BH,G,Tq) fp32.  In MX
+// mode `qkv_hat` is a bf16 scratch of q.numel + k.numel + v.numel
+// elements (the cast q, k and v, in that order); unused in bf16 mode.
 extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
-                            void* out, void* lse, int BH, int G, int Tq,
-                            int Tk, int d, int dv, int kind, int window,
-                            int q_offset, int tile_k, int has_fmt, int mbits,
+                            void* qkv_hat, void* out, void* lse, int BH,
+                            int G, int Tq, int Tk, int d, int dv, int kind,
+                            int window, int q_offset, int tile_k,
+                            int out_fp32, int has_fmt, int mbits,
                             int min_normal_exp, int e_max, float max_normal,
                             int scale_mode, float scale, void* stream) {
-  if (d > MAXD || dv > MAXD || d <= 0 || dv <= 0 || tile_k <= 0)
+  if (d > MAXD || dv > MAXD || d <= 0 || dv <= 0 || tile_k <= 0 ||
+      (has_fmt && !qkv_hat))
     return (int)cudaErrorInvalidValue;
   const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
                          scale_mode);
-  dim3 grid((Tq + FA_ROWS - 1) / FA_ROWS, G, BH);
   cudaStream_t s = (cudaStream_t)stream;
-  const __nv_bfloat16* qq = (const __nv_bfloat16*)q;
-  const __nv_bfloat16* kk = (const __nv_bfloat16*)k;
-  const __nv_bfloat16* vv = (const __nv_bfloat16*)v;
-  __nv_bfloat16* oo = (__nv_bfloat16*)out;
-  float* ll = (float*)lse;
-#define FA_LAUNCH(N)                                                        \
-  mx_flash_fwd_kernel<N><<<grid, FA_WARPS * 32, 0, s>>>(                    \
-      qq, kk, vv, oo, ll, G, Tq, Tk, d, dv, kind, window, q_offset, tile_k, \
-      has_fmt, f, scale)
-  if (BH > 0 && G > 0 && Tq > 0) {
-    switch (dv_lanes(dv)) {
-      case 1: FA_LAUNCH(1); break;
-      case 2: FA_LAUNCH(2); break;
-      case 3: FA_LAUNCH(3); break;
-      default: FA_LAUNCH(4); break;
-    }
+  if (BH <= 0 || G <= 0 || Tq <= 0) return (int)cudaGetLastError();
+  const bf16 *qq = (const bf16*)q, *kk = (const bf16*)k, *vv = (const bf16*)v;
+  const uintptr_t in_align = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  if (has_fmt && Tk > 0) {
+    const long long qrows = (long long)BH * G * Tq, krows = (long long)BH * Tk;
+    bf16* qh = (bf16*)qkv_hat;
+    bf16* kh = qh + qrows * d;
+    bf16* vh = kh + krows * d;
+    const int rvec = d % 8 == 0 && in_align % 16 == 0;
+    const long long rlanes =
+        (qrows + krows) * ((d + 31) / 32) * (rvec ? 4 : 32);
+    mx_flash_fwd_cast_rows<<<(unsigned)((rlanes + FW_PREP - 1) / FW_PREP),
+                             FW_PREP, 0, s>>>(qq, kk, qh, kh, qrows, krows,
+                                              d, rvec, f);
+    int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    const int vvec = dv % 8 == 0 && in_align % 16 == 0;
+    const long long vlanes = (long long)BH * ((Tk + tile_k - 1) / tile_k)
+                             * ((tile_k + 31) / 32)
+                             * (vvec ? 4LL * ((dv + 7) / 8) : 32LL * dv);
+    mx_flash_fwd_cast_v<<<(unsigned)((vlanes + FW_PREP - 1) / FW_PREP),
+                          FW_PREP, 0, s>>>(vv, vh, BH, Tk, dv, tile_k, vvec,
+                                           f);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    qq = qh;
+    kk = kh;
+    vv = vh;
   }
-#undef FA_LAUNCH
-  return (int)cudaGetLastError();
+  const uintptr_t align = (uintptr_t)qq | (uintptr_t)kk | (uintptr_t)vv;
+  const int vec = d % 8 == 0 && dv % 8 == 0 && align % 16 == 0;
+  const int wide = max(d, dv);
+  float* ll = (float*)lse;
+#define FW_CASE(D)                                                          \
+  return out_fp32                                                           \
+             ? fw_launch<D, float>(qq, kk, vv, out, ll, BH, G, Tq, Tk, d,   \
+                                   dv, kind, window, q_offset, tile_k, vec, \
+                                   has_fmt, f, scale, s)                    \
+             : fw_launch<D, bf16>(qq, kk, vv, out, ll, BH, G, Tq, Tk, d,    \
+                                  dv, kind, window, q_offset, tile_k, vec,  \
+                                  has_fmt, f, scale, s)
+  if (wide <= 32) FW_CASE(32);
+  if (wide <= 64) FW_CASE(64);
+  if (wide <= 96) FW_CASE(96);
+  FW_CASE(128);
+#undef FW_CASE
 }
 
 // Lanes of one K row (head dims up to 32, 64, 128; above, 32 lanes that

@@ -13,6 +13,9 @@
 //   tensor work as built is larger: S and dP are formed in both passes and
 //   each gradient product runs three times (below), 13 bf16 product units
 //   against the 5 of one plain product each.
+// Includes: mx_mma.cuh (the tensor-core and copy helpers and the mask
+//   tests, shared with the flash forward in mx_attention.cu) and
+//   mx_quant.cuh (the element cast).
 // Design: three launches per call.
 //   * Pre-pass: delta = sum(dout * out) in fp32, a warp per query row, and
 //     in MX mode the scores operands cast once: q and k blocked along d
@@ -47,14 +50,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mx_mma.cuh"
 #include "mx_quant.cuh"
 
 namespace {
 constexpr int BW_THREADS = 128;   // 4 warps of 16 own rows
 constexpr int BW_BM = 64;         // own rows of a CTA
-constexpr float NEG_INF = -1e30f;
-enum { KIND_CAUSAL = 0, KIND_FULL = 1, KIND_WINDOW = 2 };
-typedef __nv_bfloat16 bf16;
 
 // Shapes of the tiles for a padded head dim D (a multiple of 32).
 template <int D>
@@ -68,178 +69,6 @@ struct BwTile {
                               + 4 * 2 * 2 * BN;
 };
 }  // namespace
-
-__device__ __forceinline__ bool bw_valid(int kind, int window, int qpos,
-                                         int kpos) {
-  bool ok = true;
-  if (kind != KIND_FULL) ok = qpos >= kpos;
-  if (kind == KIND_WINDOW) ok = ok && kpos > qpos - window;
-  return ok;
-}
-
-// Whether any (q position in [qa, qb], k position in [ka, kb]) is valid.
-__device__ __forceinline__ bool bw_live(int kind, int window, int qa, int qb,
-                                        int ka, int kb) {
-  if (kind == KIND_FULL) return true;
-  if (ka > qb) return false;                              // all above diag
-  if (kind == KIND_WINDOW && kb <= qa - window) return false;
-  return true;
-}
-
-__device__ __forceinline__ uint32_t bw_smem(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes from global to shared memory; src_bytes 0 writes zeros.
-__device__ __forceinline__ void bw_cp16(void* dst, const void* src,
-                                        int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   bw_smem(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bw_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void bw_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(bw_smem(p)));
-}
-
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(bw_smem(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bw_pack(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float bw_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// The A fragments (16 rows x 16 columns) of three bf16 pieces of an fp32
-// tile held in the accumulators' layout as its n-tiles c0 (columns 0-7) and
-// c1 (8-15): x = hi + mid + lo, each piece bf16.
-__device__ __forceinline__ void bw_pieces(const float (&c0)[4],
-                                          const float (&c1)[4],
-                                          uint32_t (&hi)[4],
-                                          uint32_t (&mid)[4],
-                                          uint32_t (&lo)[4]) {
-  const float x[8] = {c0[0], c0[1], c0[2], c0[3], c1[0], c1[1], c1[2], c1[3]};
-  float h[8], m[8], l[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    h[e] = bw_round(x[e]);
-    const float r = __fsub_rn(x[e], h[e]);
-    m[e] = bw_round(r);
-    l[e] = __fsub_rn(r, m[e]);   // rounded to bf16 by bw_pack
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    hi[i] = bw_pack(h[2 * i], h[2 * i + 1]);
-    mid[i] = bw_pack(m[2 * i], m[2 * i + 1]);
-    lo[i] = bw_pack(l[2 * i], l[2 * i + 1]);
-  }
-}
-
-// acc (16 x D, n-tiles) += x (16 x 16 fp32, as pieces) @ tile rows
-// [16 kk, 16 kk + 16) of a shared (k-major) tile, by ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void bw_grad_step(float (&acc)[D / 8][4],
-                                             const float (&c0)[4],
-                                             const float (&c1)[4],
-                                             const bf16* tile, int kk,
-                                             int lane) {
-  constexpr int LD = BwTile<D>::LD;
-  uint32_t hi[4], mid[4], lo[4];
-  bw_pieces(c0, c1, hi, mid, lo);
-  const bf16* base = tile + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD
-                     + (lane >> 4) * 8;
-#pragma unroll
-  for (int np = 0; np < D / 16; ++np) {
-    uint32_t b[4];
-    ldsm4t(b, base + np * 16);
-    mma_bf16(acc[2 * np], hi, b[0], b[1]);
-    mma_bf16(acc[2 * np], mid, b[0], b[1]);
-    mma_bf16(acc[2 * np], lo, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], hi, b[2], b[3]);
-    mma_bf16(acc[2 * np + 1], mid, b[2], b[3]);
-    mma_bf16(acc[2 * np + 1], lo, b[2], b[3]);
-  }
-}
-
-// x (16 own rows x BN) = A rows [16 warp, +16) of `own` @ B^T, B the
-// block's rows in `blk` (both head-dim-major, k = head dim).
-template <int D>
-__device__ __forceinline__ void bw_scores(float (&x)[BwTile<D>::NT][4],
-                                          const bf16* own, const bf16* blk,
-                                          int warp, int lane) {
-  using C = BwTile<D>;
-#pragma unroll
-  for (int j = 0; j < C::NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < C::KS; ++kk) {
-    uint32_t a[4];
-    ldsm4(a, own + (warp * 16 + (lane & 15)) * C::LD + kk * 16
-                 + (lane >> 4) * 8);
-#pragma unroll
-    for (int jp = 0; jp < C::NT / 2; ++jp) {
-      uint32_t b[4];
-      ldsm4(b, blk + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * C::LD
-                   + kk * 16 + ((lane >> 3) & 1) * 8);
-      mma_bf16(x[2 * jp], a, b[0], b[1]);
-      mma_bf16(x[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Rows [0, n) of a bf16 matrix (row stride ld elements) into a shared tile
-// of D columns (row stride LD), zeros past `valid` rows and `w` columns.
-// vec: w a multiple of 8 and 16-byte aligned rows, by cp.async.
-template <int D>
-__device__ __forceinline__ void bw_tile(bf16* s, const bf16* g, long long ld,
-                                        int n, int valid, int w, bool vec) {
-  constexpr int CH = D / 8, LD = BwTile<D>::LD;
-  for (int i = threadIdx.x; i < n * CH; i += BW_THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    bf16* dst = s + r * LD + c;
-    if (vec) {
-      const bool in = r < valid && c < w;
-      bw_cp16(dst, in ? (const void*)(g + r * ld + c) : (const void*)g,
-              in ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (r < valid && c + e < w) ? g[r * ld + c + e]
-                                          : __float2bfloat16_rn(0.f);
-    }
-  }
-}
 
 // delta for the q rows; in MX mode q and k cast along d into qh and kh.
 __global__ void mx_attn_bwd_prep_kernel(
@@ -297,8 +126,9 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
   const bf16* vb = v + (long long)bh * Tk * dv;
   auto st = [&](int s, int which) { return stage + (s * 3 + which) * BN * LD; };
 
-  bw_tile<D>(sQ, qh + row0 * d, d, BW_BM, nrows, d, vec);
-  bw_tile<D>(sDO, dout + row0 * dv, dv, BW_BM, nrows, dv, vec);
+  mma_tile<C::DT, LD, BW_THREADS>(sQ, qh + row0 * d, d, BW_BM, nrows, d, vec);
+  mma_tile<C::DT, LD, BW_THREADS>(sDO, dout + row0 * dv,
+      dv, BW_BM, nrows, dv, vec);
   const int qa = r0 + q_offset, qb = r0 + nrows - 1 + q_offset;
   auto next_live = [&](int bs) {
     while (bs < Tk && !bw_live(kind, window, qa, qb, bs, min(bs + BN, Tk) - 1))
@@ -307,9 +137,12 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
   };
   auto load = [&](int s, int bs) {
     const int n = min(BN, Tk - bs);
-    if (sep) bw_tile<D>(st(s, 0), khb + (long long)bs * d, d, BN, n, d, vec);
-    bw_tile<D>(st(s, 1), kb + (long long)bs * d, d, BN, n, d, vec);
-    bw_tile<D>(st(s, 2), vb + (long long)bs * dv, dv, BN, n, dv, vec);
+    if (sep) mma_tile<C::DT, LD, BW_THREADS>(st(s, 0),
+        khb + (long long)bs * d, d, BN, n, d, vec);
+    mma_tile<C::DT, LD, BW_THREADS>(st(s, 1),
+        kb + (long long)bs * d, d, BN, n, d, vec);
+    mma_tile<C::DT, LD, BW_THREADS>(st(s, 2),
+        vb + (long long)bs * dv, dv, BN, n, dv, vec);
   };
 
   float lse_r[2], dl_r[2];
@@ -335,8 +168,8 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
     bw_wait<1>();
     __syncthreads();
     float sc[C::NT][4], dp[C::NT][4];
-    bw_scores<D>(sc, sQ, st(s, sep ? 0 : 1), warp, lane);
-    bw_scores<D>(dp, sDO, st(s, 2), warp, lane);
+    mma_scores<C::NT, C::KS, LD>(sc, sQ, st(s, sep ? 0 : 1), warp, lane);
+    mma_scores<C::NT, C::KS, LD>(dp, sDO, st(s, 2), warp, lane);
 #pragma unroll
     for (int j = 0; j < C::NT; ++j)
 #pragma unroll
@@ -352,8 +185,11 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
                              scale);   // ds
       }
 #pragma unroll
-    for (int kk = 0; kk < C::NT / 2; ++kk)
-      bw_grad_step<D>(acc, sc[2 * kk], sc[2 * kk + 1], st(s, 1), kk, lane);
+    for (int kk = 0; kk < C::NT / 2; ++kk) {   // acc += ds (3 pieces) @ K
+      uint32_t a[3][4];
+      bw_pieces(sc[2 * kk], sc[2 * kk + 1], a[0], a[1], a[2]);
+      mma_step<C::DT, LD, 3>(acc, a, st(s, 1), kk, lane);
+    }
     __syncthreads();   // this stage's reads are done before it is refilled
     s ^= 1;
     bs = nx;
@@ -397,8 +233,9 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
   const long long krow0 = (long long)bh * Tk + j0;
   auto st = [&](int s, int which) { return stage + (s * 3 + which) * BN * LD; };
 
-  bw_tile<D>(sK, kh + krow0 * d, d, BW_BM, nrows, d, vec);
-  bw_tile<D>(sV, v + krow0 * dv, dv, BW_BM, nrows, dv, vec);
+  mma_tile<C::DT, LD, BW_THREADS>(sK, kh + krow0 * d, d, BW_BM, nrows, d, vec);
+  mma_tile<C::DT, LD, BW_THREADS>(sV, v + krow0 * dv,
+      dv, BW_BM, nrows, dv, vec);
   const int ka = j0, kb = j0 + nrows - 1;
   const int nqb = (Tq + BN - 1) / BN, total = G * nqb;
   auto next_live = [&](int it) {
@@ -413,9 +250,11 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
   auto load = [&](int s, int it) {
     const int bs = (it % nqb) * BN, n = min(BN, Tq - bs);
     const long long qrow0 = ((long long)bh * G + it / nqb) * Tq + bs;
-    if (sep) bw_tile<D>(st(s, 0), qh + qrow0 * d, d, BN, n, d, vec);
-    bw_tile<D>(st(s, 1), q + qrow0 * d, d, BN, n, d, vec);
-    bw_tile<D>(st(s, 2), dout + qrow0 * dv, dv, BN, n, dv, vec);
+    if (sep) mma_tile<C::DT, LD, BW_THREADS>(st(s, 0),
+        qh + qrow0 * d, d, BN, n, d, vec);
+    mma_tile<C::DT, LD, BW_THREADS>(st(s, 1), q + qrow0 * d, d, BN, n, d, vec);
+    mma_tile<C::DT, LD, BW_THREADS>(st(s, 2),
+        dout + qrow0 * dv, dv, BN, n, dv, vec);
     for (int i = threadIdx.x; i < BN; i += BW_THREADS) {
       lse_s[s * BN + i] = i < n ? lse[qrow0 + i] : 0.f;
       dl_s[s * BN + i] = i < n ? delta[qrow0 + i] : 0.f;
@@ -439,8 +278,8 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     __syncthreads();
     const int bs = (it % nqb) * BN;
     float pt[C::NT][4], dst[C::NT][4];   // P^T and dP^T, then dS^T
-    bw_scores<D>(pt, sK, st(s, sep ? 0 : 1), warp, lane);
-    bw_scores<D>(dst, sV, st(s, 2), warp, lane);
+    mma_scores<C::NT, C::KS, LD>(pt, sK, st(s, sep ? 0 : 1), warp, lane);
+    mma_scores<C::NT, C::KS, LD>(dst, sV, st(s, 2), warp, lane);
 #pragma unroll
     for (int j = 0; j < C::NT; ++j)
 #pragma unroll
@@ -457,10 +296,12 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
             __fmul_rn(p, __fsub_rn(dst[j][e], dl_s[s * BN + qc])), scale);
       }
 #pragma unroll
-    for (int kk = 0; kk < C::NT / 2; ++kk) {
-      bw_grad_step<D>(dv_acc, pt[2 * kk], pt[2 * kk + 1], st(s, 2), kk, lane);
-      bw_grad_step<D>(dk_acc, dst[2 * kk], dst[2 * kk + 1], st(s, 1), kk,
-                      lane);
+    for (int kk = 0; kk < C::NT / 2; ++kk) {   // dv += P^T dO, dk += dS^T Q
+      uint32_t a[3][4];
+      bw_pieces(pt[2 * kk], pt[2 * kk + 1], a[0], a[1], a[2]);
+      mma_step<C::DT, LD, 3>(dv_acc, a, st(s, 2), kk, lane);
+      bw_pieces(dst[2 * kk], dst[2 * kk + 1], a[0], a[1], a[2]);
+      mma_step<C::DT, LD, 3>(dk_acc, a, st(s, 1), kk, lane);
     }
     __syncthreads();   // this stage's reads are done before it is refilled
     s ^= 1;

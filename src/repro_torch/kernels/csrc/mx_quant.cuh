@@ -23,8 +23,10 @@
 //   e + 1 only when the block's summed squared error at e + 1 is strictly
 //   smaller than at e; then the clip and the zero-block rule.  A block is
 //   held one element a lane (`mx_warp_*`), eight a lane over four lanes
-//   (`mx_quad_*`) or whole by one thread (`mx_thread_*`); the adaptive sums
-//   run in the same butterfly order in all three, so every kernel takes
+//   (`mx_quad_*`: consecutive elements; `mx_mma_*`: the m16n8k16
+//   accumulator layout) or whole by one thread (`mx_thread_*`); the
+//   adaptive sums run in the same butterfly order in all four, so every
+//   kernel takes
 //   the same choice for the same block (the
 //   plain version's torch.sum may order its sum otherwise, so the two can
 //   differ only on near ties).
@@ -225,9 +227,44 @@ __device__ __forceinline__ float mx_quad_sum(float (&s)[8]) {
   return s[0];
 }
 
-// Shared exponent of a block held as in mx_quad_sum: mx_warp_exp's value.
-__device__ __forceinline__ int mx_quad_exp(const float (&v)[8],
-                                           const MxFmt& f) {
+// A 32-block held 8 elements a lane by four consecutive lanes in the
+// m16n8k16 accumulator layout: lane tq = lane & 3 holds, of one row,
+// columns 8 t + 2 tq + b (t = 0..3, b = 0..1) in v[2 t + b].  The
+// butterfly's steps 16 and 8 (the bits of t) stay in the lane, its steps
+// 4 and 2 (the bits of tq) are the lane exchanges xor 2 and xor 1, and its
+// step 1 (b) stays in the lane, so the sum is mx_warp_sum's tree and every
+// lane of the four ends with it.  Every lane of the warp must take part;
+// overwrites s.
+__device__ __forceinline__ float mx_mma_sum(float (&s)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s[i] = __fadd_rn(s[i], s[i + 4]);   // 16
+#pragma unroll
+  for (int b = 0; b < 2; ++b) s[b] = __fadd_rn(s[b], s[b + 2]);   // 8
+#pragma unroll
+  for (int o = 2; o > 0; o >>= 1)                                 // 4, 2
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      s[b] = __fadd_rn(s[b], __shfl_xor_sync(0xffffffffu, s[b], o));
+  return __fadd_rn(s[0], s[1]);                                   // 1
+}
+
+// The two four-lane layouts, by their sum (mx_quad_sum, mx_mma_sum).
+struct MxQuadLanes {
+  static __device__ __forceinline__ float sum(float (&s)[8]) {
+    return mx_quad_sum(s);
+  }
+};
+struct MxMmaLanes {
+  static __device__ __forceinline__ float sum(float (&s)[8]) {
+    return mx_mma_sum(s);
+  }
+};
+
+// Shared exponent of a block held by four lanes in layout L:
+// mx_warp_exp's value.
+template <class L>
+__device__ __forceinline__ int mx_lanes4_exp(const float (&v)[8],
+                                             const MxFmt& f) {
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) amax = mx_nanmax(amax, fabsf(v[i]));
@@ -243,8 +280,8 @@ __device__ __forceinline__ int mx_quad_exp(const float (&v)[8],
       s0[i] = mx_sq_err(v[i], e, f);
       s1[i] = mx_sq_err(v[i], e + 1, f);
     }
-    const float err0 = mx_quad_sum(s0);
-    const float err1 = mx_quad_sum(s1);
+    const float err0 = L::sum(s0);
+    const float err1 = L::sum(s1);
     e += err1 < err0;
   }
   return mx_final_exp(e, amax);
@@ -252,7 +289,15 @@ __device__ __forceinline__ int mx_quad_exp(const float (&v)[8],
 
 // Quantize a block held as in mx_quad_sum, in place.
 __device__ __forceinline__ void mx_quad_quant(float (&v)[8], const MxFmt& f) {
-  const int e = mx_quad_exp(v, f);
+  const int e = mx_lanes4_exp<MxQuadLanes>(v, f);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = mx_cast(v[i], e, f);
+}
+
+// Quantize a block held as in mx_mma_sum (a row's 32 columns of an
+// m16n8k16 accumulator tile), in place.
+__device__ __forceinline__ void mx_mma_quant(float (&v)[8], const MxFmt& f) {
+  const int e = mx_lanes4_exp<MxMmaLanes>(v, f);
 #pragma unroll
   for (int i = 0; i < 8; ++i) v[i] = mx_cast(v[i], e, f);
 }
@@ -280,6 +325,27 @@ template <> __device__ __forceinline__ void mx_store<float>(float* p, float v) {
 template <> __device__ __forceinline__ void mx_store<__nv_bfloat16>(
     __nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+// Eight bf16 values (one 16-byte word) as fp32, and back, rounded to
+// nearest (exact for cast values).
+__device__ __forceinline__ void mx_unpack8(const uint4& w, float (&x)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 p2 = __bfloat1622float2(h[e]);
+    x[2 * e] = p2.x;
+    x[2 * e + 1] = p2.y;
+  }
+}
+
+__device__ __forceinline__ uint4 mx_pack8(const float (&x)[8]) {
+  uint4 w;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&w);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(x[2 * e],
+                                                           x[2 * e + 1]);
+  return w;
 }
 
 static inline MxFmt mx_fmt(int mbits, int min_normal_exp, int e_max,

@@ -60,9 +60,10 @@ KERNELS = {
     "mx_matmul_wgrad": ((_CSRC + "mx_matmul_bwd.cu",
                          _CSRC + "mx_gemm_sm90.cuh"),
                         "src/repro/kernels/mx_matmul_bwd.py:142"),
-    "mx_flash_attention": ((_CSRC + "mx_attention.cu",),
+    "mx_flash_attention": ((_CSRC + "mx_attention.cu", _CSRC + "mx_mma.cuh"),
                            "src/repro/kernels/mx_attention.py:156"),
-    "mx_flash_attention_bwd": ((_CSRC + "mx_attention_bwd.cu",),
+    "mx_flash_attention_bwd": ((_CSRC + "mx_attention_bwd.cu",
+                                _CSRC + "mx_mma.cuh"),
                                "src/repro/kernels/mx_attention.py:275"),
     "mx_attention_decode": ((_CSRC + "mx_attention.cu",),
                             "src/repro/kernels/mx_attention.py:455"),
@@ -87,9 +88,7 @@ _SIGNATURES = {
     "mx_matmul_wgrad": ("mx_matmul_bwd", [_P] * 6 + [_I] * 6
                         + [_I, *_FMT, _I, *_FMT, _P]),
     "mx_decode_smem_bytes": ("mx_attention", [_I, _I, _I, _I]),
-    "mx_flash_fwd": ("mx_attention", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _I, _I, _I, *_FMT, _F,
-                                      _P]),
+    "mx_flash_fwd": ("mx_attention", [_P] * 6 + [_I] * 12 + [*_FMT, _F, _P]),
     "mx_flash_bwd": ("mx_attention_bwd", [_P] * 11 + [_I] * 11 + [*_FMT, _F,
                                                                  _P]),
     "mx_attn_decode": ("mx_attention", [_P] * 5 + [_I] * 8 + [_LL] * 7
@@ -392,12 +391,15 @@ def mx_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
 
 def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        fmt: Optional[ElementFormat], spec: AttnSpec,
-                       block: int = MX_BLOCK, scale_mode: str = "floor"):
+                       block: int = MX_BLOCK, scale_mode: str = "floor",
+                       out_dtype: Optional[torch.dtype] = None):
     """Flash forward on the folded layout q (BH,G,Tq,d), k (BH,Tk,d),
-    v (BH,Tk,dv) -> (out (BH,G,Tq,dv) bf16, lse (BH,G,Tq) fp32)."""
+    v (BH,Tk,dv) -> (out (BH,G,Tq,dv) bf16, lse (BH,G,Tq) fp32).  With
+    ``out_dtype=torch.float32`` out is fp32: the bf16 out before its one
+    rounding (for checks; the model passes nothing)."""
     if not q.is_cuda:
         return ref.mx_flash_attention_ref(q, k, v, fmt, spec, block,
-                                          scale_mode)
+                                          scale_mode, out_dtype)
     _check_cuda("mx_flash_attention", q, k, v)
     _check_mx("mx_flash_attention", fmt, block, scale_mode)
     if spec.kind not in _KIND:
@@ -406,6 +408,9 @@ def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "through mx_attention_decode)")
     if {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
         raise TypeError("mx_flash_attention: bfloat16 q, k and v")
+    odt = out_dtype or q.dtype
+    if odt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"mx_flash_attention: out_dtype {odt}")
     BH, G, Tq, d = q.shape
     Tk, dv = k.shape[1], v.shape[-1]
     if k.shape != (BH, Tk, d) or v.shape[:2] != (BH, Tk):
@@ -414,14 +419,18 @@ def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d > 128 or dv > 128:
         raise NotImplementedError("mx_flash_attention: head dims up to 128")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((BH, G, Tq, dv), dtype=q.dtype, device=q.device)
+    out = torch.empty((BH, G, Tq, dv), dtype=odt, device=q.device)
     lse = torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
+    # MX mode: q and k cast along d, v along kv, once, by the pre-pass
+    qkv_hat = (None if fmt is None else torch.empty(
+        q.numel() + k.numel() + v.numel(), dtype=torch.bfloat16,
+        device=q.device))
     tile_k = ref.attn_tiles(spec, Tq, Tk)[1]
     _launch("mx_flash_attention", "mx_flash_fwd", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, G, Tq, Tk, d,
-            dv, _KIND[spec.kind], spec.window, spec.q_offset, tile_k,
-            int(fmt is not None), *_fmt_args(fmt, scale_mode),
-            1.0 / math.sqrt(d))
+            v.data_ptr(), _ptr(qkv_hat), out.data_ptr(), lse.data_ptr(), BH,
+            G, Tq, Tk, d, dv, _KIND[spec.kind], spec.window, spec.q_offset,
+            tile_k, int(odt == torch.float32), int(fmt is not None),
+            *_fmt_args(fmt, scale_mode), 1.0 / math.sqrt(d))
     return out, lse
 
 

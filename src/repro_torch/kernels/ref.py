@@ -121,11 +121,13 @@ def _pad_axis(x: torch.Tensor, axis: int, to: int) -> torch.Tensor:
 
 def mx_flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            fmt: Optional[ElementFormat], spec: AttnSpec,
-                           block: int = MX_BLOCK, scale_mode: str = "floor"):
+                           block: int = MX_BLOCK, scale_mode: str = "floor",
+                           out_dtype=None):
     """Online-softmax flash forward with MX-quantized QK^T / PV and tile
-    skipping.  Returns (out (BH, G, Tq, dv) in q.dtype, lse (BH, G, Tq)
-    fp32).  The probabilities are quantized after the rescale by the
-    running max over the whole kv tile, as the reference does."""
+    skipping.  Returns (out (BH, G, Tq, dv) in q.dtype, or ``out_dtype``
+    when given, lse (BH, G, Tq) fp32).  The probabilities are quantized
+    after the rescale by the running max over the whole kv tile, as the
+    reference does."""
     BH, G, Tq, d = q.shape
     Tk = k.shape[1]
     dv = v.shape[-1]
@@ -166,7 +168,7 @@ def mx_flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                        pq, vv)
             m = m_new
         lc = torch.clamp(l, min=1e-30)
-        outs.append((acc / lc[..., None]).to(q.dtype))
+        outs.append((acc / lc[..., None]).to(out_dtype or q.dtype))
         lses.append(m + torch.log(lc))
     out = torch.cat(outs, dim=2)[:, :, :Tq]
     lse = torch.cat(lses, dim=2)[:, :, :Tq]
