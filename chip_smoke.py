@@ -26,7 +26,8 @@ Phases, each of which raises on failure:
                 each called twice for equal bits, and both paths timed
                 around the plan's switch.  MXFP6 and MXFP4 (E3M2, E2M3,
                 E2M1) under each scale rule: quantize bitwise, the
-                forward GEMM on both paths, and the cast without the
+                forward GEMM on both paths, the dgrad and wgrad on the
+                proxy's fp32 operands, and the cast without the
                 min_normal_exp clamp planted, which the checks reject.
                 The flash forward at its edges (FLASH_FWD_EDGES: ragged
                 T 300, G 2, window with q_offset, full Tq 300 / Tk 200,
@@ -46,6 +47,14 @@ Phases, each of which raises on failure:
                 matter; adaptive choices that differ must be near ties
                 (counted); the floor rule under "bump" and "always e + 1"
                 under "adaptive" planted, which the checks reject.
+     lanes    — the lane GEMMs (kernels 2-4 with a lane axis) at 8 lanes,
+                at the fig6 preset's shapes and ProxyConfig()'s, fp32, in
+                E4M3, E5M2, E3M2, E2M3 and E2M1 under every rule: each
+                lane bitwise to the 2-D kernel on its operands, within
+                gemm_check of the plain version, equal bits on a second
+                call; a lane reading its neighbour's weight and a plan
+                folding the lane count into the splits planted and
+                rejected; timed against 8 2-D calls and torch.bmm.
   3. serve    — ``ServeEngine`` on olmo-paper (full width, n = 8) with seeded
                 random weights: 8 requests under ``mxfp8_e4m3`` and under
                 ``e4m3_bf16act``; every request must finish and every
@@ -69,12 +78,22 @@ Phases, each of which raises on failure:
                 launching.
   8. proxy    — the paper's student-teacher proxy at full width trains 20
                 steps under ``mxfp8_e4m3``.
-  9. paged-parity — page pools filled by chunked prefill for 4 prompts:
+  9. sweep    — the fig6 preset at its full budget (5 schemes x 8 seeds,
+                500 steps, d_model 128, 4 layers, batch 256) packed into
+                a RunDB; a resume after stop_after=7 that must reproduce
+                the uninterrupted aggregates; a fig7 pair bitwise equal
+                before its fp32 switch; an advisory autopilot pack; one
+                kind="lm" run of table1 through the Trainer.
+ 10. sweep-parity — packed against sequential (rtol 2e-4 / atol 1e-7,
+                equal spike flags), launches of a pack step at 8 lanes
+                against 1, and the reference's gate: 8 seeds packed at
+                least 3x faster than sequential.
+ 11. paged-parity — page pools filled by chunked prefill for 4 prompts:
                 one decode step through the page table and one slab step
                 on the gathered cache give bitwise equal logits, and the
                 new K/V rows land in the mapped pages; chunked against
                 whole prefill logits within CHUNK_ATOL.
- 10. paged    — the JAX package's bursty 32-request trace through the slab
+ 12. paged    — the JAX package's bursty 32-request trace through the slab
                 engine (2 rows x 256) and the paged engine (6 rows, 16
                 pages of 32) under both presets: every request finishes,
                 the allocator ends empty, the prefix cache hits, the paged
@@ -211,8 +230,11 @@ def time_parts_ms(fn, iters: int, flush):
         if _window_counts_ok(prof, iters):
             break
     else:
+        seen = {row.key[:60]: row.count for row in prof.key_averages()
+                if row.device_type == torch.autograd.DeviceType.CUDA}
         print(f"[timing] the profiler lost records in three windows (flush "
-              f"kernels {sorted(_FLUSH_KEYS)}): CUDA events", flush=True)
+              f"kernels {sorted(_FLUSH_KEYS)}; the last window of {iters} "
+              f"calls saw {seen}): CUDA events", flush=True)
         EVENT_TIMED[0] += 1
         return _event_ms(fn, iters, flush), {}
     parts = {row.key: getattr(row, "device_time_total",
@@ -1556,24 +1578,27 @@ def mode_input(shape, axis, fmt, g, std=1.0, dtype=None, edges=False):
     subnormal range below its max, so that e + 1 puts more of it on the
     coarser subnormal grid and "adaptive" keeps e.  With ``edges``, the first rows hold an all-zero block, a NaN, an
     infinity, and blocks whose floor exponent sits at the lower and upper
-    clip."""
+    clip.  Drawn on the generator's device."""
     import torch
     dtype = dtype or torch.bfloat16
-    x = torch.movedim(torch.randn(*shape, generator=g) * std, axis, -1)
+    dev = g.device
+    x = torch.movedim(torch.randn(*shape, generator=g, device=dev) * std,
+                      axis, -1)
     n = x.shape[-1] // 32 * 32
     xb = x[..., :n].unflatten(-1, (-1, 32))
     k = torch.ceil(torch.log2(xb.abs().amax(-1) + 1e-30))
     sign = torch.where(xb[..., 0] < 0, -1.0, 1.0)
     top = fmt.max_normal / 2.0 ** fmt.e_max      # max_normal's mantissa
-    frac = 2.0 ** -7 + (2 - top - 2.0 ** -6) * torch.rand(k.shape,
-                                                           generator=g)
+    frac = 2.0 ** -7 + (2 - top - 2.0 ** -6) * torch.rand(
+        k.shape, generator=g, device=dev)
     xb[..., 1::4, 0] = ((top + frac) * 2.0 ** k * sign)[..., 1::4]
-    tight = (1.96 + 0.02 * torch.rand(xb[..., 2::4, :].shape, generator=g)
+    tight = (1.96 + 0.02 * torch.rand(xb[..., 2::4, :].shape, generator=g,
+                                      device=dev)
              ) * 2.0 ** k[..., 2::4, None]
     xb[..., 2::4, :] = tight * torch.where(xb[..., 2::4, :] < 0, -1.0, 1.0)
     span = fmt.e_max - fmt.min_normal_exp + fmt.mbits + 2
     wide = 2.0 ** (k[..., 3::4, None] - span * torch.rand(
-        xb[..., 3::4, :].shape, generator=g))
+        xb[..., 3::4, :].shape, generator=g, device=dev))
     xb[..., 3::4, :] = wide * torch.where(xb[..., 3::4, :] < 0, -1.0, 1.0)
     if edges:
         flat = xb.reshape(-1, xb.shape[-2], 32)
@@ -1824,8 +1849,10 @@ def lowbit_kernels():
     """[kernels] in MXFP6 (E3M2, E2M3) and MXFP4 (E2M1) under each scale
     rule: quantize bitwise to its plain version (adaptive: near ties
     only), the forward GEMM on both paths (decode and training lm_head)
-    within gemm_check; the cast without the min_normal_exp clamp planted in
-    the plain versions must fail both checks."""
+    and the dgrad and wgrad on the proxy's fp32 operands (batch 2048,
+    512 -> 2048: the path every sweep preset trains through) within
+    gemm_check; the cast without the min_normal_exp clamp planted in the
+    plain versions must fail every check."""
     import torch
     from repro_torch.core import E2M1, E2M3, E3M2
 
@@ -1845,8 +1872,291 @@ def lowbit_kernels():
                                 faults)
             t += gemm_mode_case("kernels", "fwd", x, w, fmt, fmt, mode,
                                 faults)
+            t += proxy_bwd_cases("kernels", fmt, mode, g, faults)
             out[f"{fmt.name} {mode}"] = t
     return out
+
+
+def proxy_bwd_cases(tag, fmt, mode, g, faults=(), dev="cuda"):
+    """The dgrad and wgrad kernels on the proxy's fp32 operands (batch
+    2048, d 512 -> hidden 2048) in ``fmt`` under ``mode`` (gemm_mode_case,
+    ``faults`` planted); returns the adaptive near ties."""
+    import torch
+    f32 = torch.float32
+    M, K, N = 2048, 512, 2048
+    dy = mode_input((M, N), -1, fmt, g, 1e-2, f32).to(dev)
+    w = mode_input((K, N), 1, fmt, g, 1 / math.sqrt(K), f32).to(dev)
+    t = gemm_mode_case(tag, "dgrad", dy, w, fmt, fmt, mode, faults)
+    x = mode_input((M, K), 0, fmt, g, dtype=f32).to(dev)
+    dy = mode_input((M, N), 0, fmt, g, 1e-2, f32).to(dev)
+    return t + gemm_mode_case(tag, "wgrad", x, dy, fmt, fmt, mode, faults)
+
+
+# ---------------------------------------------------------------------------
+# [lanes]: the lane GEMMs, kernels 2-4 with a lane axis (ops.mx_matmul_lanes,
+# mx_matmul_dgrad_lanes, mx_matmul_wgrad_lanes), which the sweeps' packs run.
+# ---------------------------------------------------------------------------
+LANES = 8
+# (label, batch, d_model, hidden): the fig6 preset's proxy (the shapes the
+# [sweep] path gives the lane kernels) and ProxyConfig().
+LANE_SIZES = (("fig6", 256, 128, 512), ("ProxyConfig", 2048, 512, 2048))
+LANE_FORMATS = ("e4m3", "e5m2", "e3m2", "e2m3", "e2m1")
+LANE_KERNELS = ("mx_matmul_lanes", "mx_matmul_dgrad_lanes",
+                "mx_matmul_wgrad_lanes")
+# Faults a lane GEMM could plant: lane l computing with lane l + 1's
+# weight, and a plan taken with the lane count folded into the output
+# tiles (fewer contraction splits where the one-lane plan splits).  The
+# first breaks the product, so gemm_check rejects it too; the second only
+# changes the order of fp32 sums, which gemm_check allows by design and
+# only the bitwise check against the 2-D kernel sees.
+LANE_FAULTS = ("a lane reads lane l+1's weight",
+               "a plan that folds L into the split count")
+
+
+def lane_fns(kind):
+    """(lane wrapper, 2-D wrapper, plain lane version, quantize axes of the
+    two operands) of the forward GEMM, dgrad or wgrad."""
+    from repro_torch.kernels import ops, ref
+    return {"fwd": (ops.mx_matmul_lanes, ops.mx_matmul,
+                    ref.mx_matmul_lanes_ref, (-1, 1)),
+            "dgrad": (ops.mx_matmul_dgrad_lanes, ops.mx_matmul_dgrad,
+                      ref.mx_matmul_dgrad_lanes_ref, (-1, -1)),
+            "wgrad": (ops.mx_matmul_wgrad_lanes, ops.mx_matmul_wgrad,
+                      ref.mx_matmul_wgrad_lanes_ref, (1, 1))}[kind]
+
+
+def lane_operands(kind, B, d, h, fmt, g, lanes=LANES):
+    """The proxy's first-layer GEMM of ``kind`` over ``lanes`` lanes, fp32:
+    forward x (L, B, d) @ W (L, d, h), dgrad dy (L, B, h) against W, wgrad
+    x against dy; blocks along each contraction make the scale rules
+    matter (mode_input)."""
+    import torch
+    f32, L = torch.float32, lanes
+    if kind == "fwd":
+        return (mode_input((L, B, d), -1, fmt, g, dtype=f32),
+                mode_input((L, d, h), 1, fmt, g, 1 / math.sqrt(d), f32))
+    if kind == "dgrad":
+        return (mode_input((L, B, h), -1, fmt, g, 1e-2, f32),
+                mode_input((L, d, h), -1, fmt, g, 1 / math.sqrt(d), f32))
+    return (mode_input((L, B, d), 1, fmt, g, dtype=f32),
+            mode_input((L, B, h), 1, fmt, g, 1e-2, f32))
+
+
+def _t(x):
+    return x.transpose(-1, -2)
+
+
+def lane_product(kind, a, b):
+    """The GEMM of ``kind`` on (quantized) lane operands in product form,
+    (L, M, Kc) @ (L, Kc, N), as fp32."""
+    a, b = a.float(), b.float()
+    return {"fwd": (a, b), "dgrad": (a, _t(b)), "wgrad": (_t(a), b)}[kind]
+
+
+def split_product(kind, a, b, fmt, mode="floor", plan=None):
+    """A plain emulation of the lane kernels' split-K order: each lane's
+    quantized operands in product form, the contraction cut into the
+    plan's splits of whole BWD_DEPTH k-tiles, each split's fp32 product,
+    the splits summed in order, lane by lane.  ``plan(rows, cols,
+    contraction) -> (depth, splits)`` is ops.bwd_gemm_plan unless given
+    (a planted plan)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    _, _, _, axes = lane_fns(kind)
+    plan = plan or ops.bwd_gemm_plan
+    qa = ref.mx_quantize_ref(a, fmt, axis=axes[0], scale_mode=mode)
+    qb = ref.mx_quantize_ref(b, fmt, axis=axes[1], scale_mode=mode)
+    A, Bm = lane_product(kind, qa, qb)
+    M, Kc, N = A.shape[1], A.shape[2], Bm.shape[2]
+    depth, splits = plan(M, N, Kc)
+    ktiles = depth // ops.BWD_DEPTH
+    per = -(-ktiles // splits) * ops.BWD_DEPTH
+    out = []
+    for lane in range(A.shape[0]):
+        acc = None
+        for k0 in range(0, Kc, per):
+            part = A[lane, :, k0:k0 + per] @ Bm[lane, k0:k0 + per, :]
+            acc = part if acc is None else acc + part
+        out.append(acc.to(a.dtype))
+    return torch.stack(out)
+
+
+def folded_plan(lanes):
+    """ops.bwd_gemm_plan with the lane count folded into the output tiles
+    (the planted plan fault)."""
+    from repro_torch.kernels import ops
+    plan = ops.bwd_gemm_plan
+    return lambda rows, cols, contraction: plan(rows * lanes, cols,
+                                                contraction)
+
+
+def planted_lanes(kind, a, b, fmt, mode, fault=None):
+    """The lane call of ``kind`` with one planted ``fault`` (None: none).
+    On CUDA tensors the lane kernel (the folded plan patched into
+    ops.bwd_gemm_plan for the call) or the 2-D kernel per lane; on CPU
+    tensors the plain versions and the split emulation."""
+    from repro_torch.kernels import ops
+    fn, fn2, _, _ = lane_fns(kind)
+    L = a.shape[0]
+    if fault == LANE_FAULTS[0]:
+        import torch
+        return torch.stack([fn2(a[i], b[(i + 1) % L], fmt, fmt,
+                                scale_mode=mode) for i in range(L)])
+    if not a.is_cuda:
+        return split_product(kind, a, b, fmt, mode,
+                             folded_plan(L) if fault else None)
+    if fault == LANE_FAULTS[1]:
+        plan = ops.bwd_gemm_plan
+        ops.bwd_gemm_plan = folded_plan(L)
+        try:
+            return fn(a, b, fmt, fmt, scale_mode=mode)
+        finally:
+            ops.bwd_gemm_plan = plan
+    return fn(a, b, fmt, fmt, scale_mode=mode)
+
+
+def lane_splits(kind, a, b, plan=None):
+    """The contraction splits the plan gives one lane of ``kind``."""
+    from repro_torch.kernels import ops
+    plan = plan or ops.bwd_gemm_plan
+    A, Bm = lane_product(kind, a[:1], b[:1])
+    return plan(A.shape[1], Bm.shape[2], A.shape[2])[1]
+
+
+def lane_case(kind, a, b, fmt, mode, faults=False):
+    """The lane kernel of ``kind`` on (L, ., .) operands under ``mode``:
+    every lane bitwise equal to the 2-D kernel's call on that lane's
+    operands, the whole within gemm_check of the plain version (where the
+    operands hold adaptive near ties, of the product of the kernels'
+    checked choices, as gemm_mode_case), equal bits on a second call; with
+    ``faults`` the LANE_FAULTS planted (each must fail the bitwise check,
+    the first also gemm_check).  Returns a dict of the readings."""
+    import torch
+    fn, fn2, plain, axes = lane_fns(kind)
+    L = a.shape[0]
+    got = fn(a, b, fmt, fmt, scale_mode=mode)
+    two = torch.stack([fn2(a[i], b[i], fmt, fmt, scale_mode=mode)
+                       for i in range(L)])
+    bitwise = torch.equal(got, two)
+    replay = torch.equal(got, fn(a, b, fmt, fmt, scale_mode=mode))
+    (qa, qb), ties = kernel_operands(((a, fmt, axes[0]), (b, fmt, axes[1])),
+                                     mode)
+    want = (plain(a, b, fmt, fmt, scale_mode=mode) if ties == 0 else
+            torch.matmul(*lane_product(kind, qa, qb)).to(a.dtype))
+    ma, mb = lane_product(kind, qa.abs(), qb.abs())
+    n = ma.shape[-1]
+    ok, worst, err = gemm_check(got, want, ma, mb, n)
+    out = {"kind": kind, "fmt": fmt.name, "mode": mode,
+           "shape": [list(a.shape), list(b.shape)], "bitwise_2d": bitwise,
+           "replay": replay, "worst": worst, "max_abs_err": err,
+           "ties": ties, "splits": lane_splits(kind, a, b)}
+    if faults:
+        for fault in LANE_FAULTS:
+            if fault == LANE_FAULTS[1] and lane_splits(
+                    kind, a, b, folded_plan(L)) == out["splits"]:
+                print(f"[controls] lanes {kind} {fmt.name}: {fault!r} not "
+                      f"plantable ({out['splits']} splits either way)",
+                      flush=True)
+                continue
+            bad = planted_lanes(kind, a, b, fmt, mode, fault)
+            same = torch.equal(bad, two)
+            accepted, w_ = gemm_check(bad, want, ma, mb, n)[:2]
+            print(f"[controls] lanes {kind} {fmt.name} {mode}: {fault!r} "
+                  f"bitwise to the 2-D kernel {same}, gemm_check worst "
+                  f"err/tol {w_:.2f} "
+                  f"({'ACCEPTED' if same else 'rejected'})", flush=True)
+            if same or (fault == LANE_FAULTS[0] and accepted):
+                raise AssertionError(f"lanes {kind}: the checks accept the "
+                                     f"planted fault {fault!r}")
+    return out
+
+
+def lane_bound(kind, a, b):
+    """(bound ms, bound_by) of a lane GEMM: each fp32 operand read once, the
+    fp32 output written once; bf16 tensor-core operations."""
+    A, Bm = lane_product(kind, a[:1], b[:1])
+    L, (M, Kc), N = a.shape[0], A.shape[1:], Bm.shape[2]
+    return bound(4 * L * (M * Kc + Kc * N + M * N), 2 * L * M * N * Kc)
+
+
+def lane_library(kind, a, b):
+    """torch.bmm of the unquantized operands: the same product, one call."""
+    import torch
+    return {"fwd": lambda: torch.bmm(a, b),
+            "dgrad": lambda: torch.bmm(a, _t(b)),
+            "wgrad": lambda: torch.bmm(_t(a), b)}[kind]
+
+
+def phase_lanes():
+    """[lanes]: the three lane kernels at LANES lanes, at the fig6 preset's
+    shapes and ProxyConfig()'s, fp32, in five formats under every rule:
+    each lane bitwise to the 2-D kernel, within gemm_check of the plain
+    version, equal bits on a second call; LANE_FAULTS planted at
+    ProxyConfig() in E4M3; in E4M3 under floor, the lane call timed
+    against LANES 2-D calls, the plain version and torch.bmm.  Returns
+    the kernel rows (fig6's shapes are the primary case)."""
+    import torch
+    from repro_torch.core import get_format
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").bitwise_not_
+    card = torch.cuda.get_device_name(0)
+    rows = {}
+    ties = 0
+    for label, B, d, h in LANE_SIZES:
+        for fname in LANE_FORMATS:
+            fmt = get_format(fname)
+            for kind, name in zip(("fwd", "dgrad", "wgrad"), LANE_KERNELS):
+                a, b = lane_operands(kind, B, d, h, fmt, g)
+                for mode in ops.SCALE_MODES:
+                    primary = fname == "e4m3" and mode == "floor"
+                    c = lane_case(kind, a, b, fmt, mode, faults=(
+                        primary and label == "ProxyConfig"))
+                    ties += c["ties"]
+                    ok = (c["bitwise_2d"] and c["replay"]
+                          and c["worst"] <= 1.0)
+                    print(f"[lanes] {'ok  ' if ok else 'FAIL'} {label} "
+                          f"{name} {json.dumps(c)}", flush=True)
+                    if not ok:
+                        raise AssertionError(
+                            f"lanes {label} {name} {fname} {mode}: bitwise "
+                            f"{c['bitwise_2d']}, replay {c['replay']}, "
+                            f"worst err/tol {c['worst']}")
+                    if not primary:
+                        continue
+                    fn, fn2, plain, _ = lane_fns(kind)
+
+                    def lane_call():
+                        return fn(a, b, fmt, fmt)
+
+                    def two_d():
+                        return [fn2(a[i], b[i], fmt, fmt)
+                                for i in range(LANES)]
+                    events0 = EVENT_TIMED[0]
+                    ms = time_ms(lane_call, 10, flush)
+                    entry = {
+                        "case": f"{label} L{LANES} {tuple(a.shape)}x"
+                                f"{tuple(b.shape)} fp32 e4m3 floor",
+                        "max_abs_err": c["max_abs_err"], "ms": ms,
+                        "two_d_x_lanes_ms": time_ms(two_d, 10, flush),
+                        "plain_ms": time_ms(
+                            lambda: plain(a, b, fmt, fmt), 3, flush),
+                        "library_ms": time_ms(lane_library(kind, a, b), 10,
+                                              flush),
+                        "splits": c["splits"], "card": card}
+                    entry["bound_ms"], entry["bound_by"] = lane_bound(
+                        kind, a, b)
+                    entry["timing"] = ("events" if EVENT_TIMED[0] > events0
+                                       else "profiler")
+                    print(f"[lanes] {name} {json.dumps(entry)}", flush=True)
+                    rows.setdefault(name, {"cases": []})["cases"].append(
+                        entry)
+                    if label == "fig6":
+                        rows[name].update(entry)
+    print(f"[lanes] {ties} adaptive near ties over every case", flush=True)
+    return rows
 
 
 def training_kernels(rnd, record, flush):
@@ -2420,6 +2730,309 @@ def phase_proxy():
     if idle:
         raise AssertionError(f"proxy: kernels never launched: {idle}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# [sweep] and [sweep-parity]: the paper's sweeps, lane-packed.
+# ---------------------------------------------------------------------------
+SWEEP_RTOL, SWEEP_ATOL = 2e-4, 1e-7   # the reference's (tests/test_sweep.py)
+SWEEP_GATE = 3.0      # benchmarks/sweep_throughput.py SMOKE_SPEEDUP
+SWEEP_DRIFT = 5e-2    # and its final-loss drift limit
+
+
+def _sync(dev):
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _agg_no_time(agg):
+    return {k: {f: v for f, v in s.items() if f != "us_per_step"}
+            for k, s in agg.items()}
+
+
+def phase_sweep(dev: str = "cuda", budget: str = "full"):
+    """[sweep]: the fig6 preset at ``budget`` (full: 5 schemes x 8 seeds,
+    500 steps, d_model 128, 4 layers, batch 256) packed into a RunDB in a
+    temporary directory (its table, wall time per pack, launches per pack
+    step, peak memory); a resume check on fig6 "quick" (stop_after=7, then
+    a relaunch that must skip exactly 7 and reproduce the uninterrupted
+    aggregates bit for bit); a fig7 pair (mxfp4_e2m1 with and without an
+    fp32 switch at step 100: equal bits before it, not after); one
+    advisory autopilot pack (journals non-empty where a lane spikes); one
+    kind="lm" run of table1 "quick" through the Trainer (finite).  Returns
+    the launch counts of the fig6 run and its readings."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.sweep import (RunDB, aggregate, format_table,
+                                   get_sweep_spec, run_sweep)
+    from repro_torch.sweep.presets import fig7_base_spec, table1_spec
+
+    cuda = torch.device(dev).type == "cuda"
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # 1. fig6, the paper's Fig. 6 protocol, packed into a RunDB.
+        spec = get_sweep_spec("fig6", budget)
+        runs = spec.expand()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _sync(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rep = run_sweep(spec, db=str(Path(tmp) / "fig6.jsonl"), device=dev)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        res = list(rep)
+        packs = {}
+        for r in res:
+            packs.setdefault(r.label, r.us_per_step * r.steps / 1e6)
+        pack_steps = len(packs) * runs[0].steps
+        per_step = {k: v / pack_steps for k, v in counts.items() if v}
+        print(format_table(aggregate(rep)), flush=True)
+        fig6 = {"budget": budget, "runs": len(res), "packs": len(packs),
+                "lanes": len(res) // max(len(packs), 1),
+                "steps": runs[0].steps, "wall_s": wall,
+                "pack_wall_s": packs, "launches": counts,
+                "launches_per_pack_step": per_step,
+                "peak_memory": (torch.cuda.max_memory_allocated() if cuda
+                                else None)}
+        print("[sweep] fig6 " + json.dumps(fig6), flush=True)
+        if rep.n_executed != len(runs) or len(res) != len(runs):
+            raise AssertionError(f"fig6: {rep.n_executed} of {len(runs)} "
+                                 "runs executed")
+        if any(r.steps != runs[0].steps for r in res):
+            raise AssertionError("fig6: a run stopped short")
+        fp32 = [r for r in res if r.label == "fig6.fp32"]
+        if not fp32 or any(r.divergent or not math.isfinite(r.final_loss)
+                           for r in fp32):
+            raise AssertionError("fig6: an fp32 run diverged")
+        if cuda:
+            idle = [k for k in LANE_KERNELS if counts[k] == 0]
+            if idle:
+                raise AssertionError(f"fig6: lane kernels never launched: "
+                                     f"{idle}")
+        out["fig6"] = fig6
+
+        # 2. Resume: stop after 7 runs, relaunch, compare with a whole run.
+        quick = get_sweep_spec("fig6", "quick")
+        n = len(quick.expand())
+        whole = run_sweep(quick, device=dev)
+        db = str(Path(tmp) / "resume.jsonl")
+        first = run_sweep(quick, db=db, stop_after=7, device=dev)
+        second = run_sweep(quick, db=db, device=dev)
+        agg_whole = _agg_no_time(aggregate(whole))
+        agg_resumed = _agg_no_time(aggregate(RunDB(db)))
+        same_final = sum(whole[r.run_id].final_loss == r.final_loss
+                         for r in second)
+        resume = {"runs": n, "first_executed": first.n_executed,
+                  "first_interrupted": first.interrupted,
+                  "second_skipped": second.n_skipped,
+                  "second_executed": second.n_executed,
+                  "aggregates_equal": agg_resumed == agg_whole,
+                  "final_losses_bitwise": same_final}
+        print("[sweep] resume " + json.dumps(resume), flush=True)
+        if not (first.interrupted and first.n_executed == 7
+                and second.n_skipped == 7 and second.n_executed == n - 7
+                and agg_resumed == agg_whole):
+            raise AssertionError(f"resume: {resume}")
+        out["resume"] = resume
+
+        # 3. fig7: mxfp4_e2m1 with and without an fp32 switch at step 100.
+        base = fig7_base_spec("quick").expand()[0]
+        switched = dataclasses.replace(base, phases=((100, "fp32"),))
+        pair = run_sweep([base, switched], keep_history=True, device=dev)
+        la = pair[base.run_id].history["loss"]
+        lb = pair[switched.run_id].history["loss"]
+        fig7 = {"scheme": base.scheme, "steps": base.steps,
+                "equal_before": la[:100] == lb[:100],
+                "differ_after": la[100:] != lb[100:],
+                "final": [la[-1], lb[-1]],
+                "diverge_step": [pair[base.run_id].diverge_step,
+                                 pair[switched.run_id].diverge_step]}
+        print("[sweep] fig7 " + json.dumps(fig7), flush=True)
+        if not (fig7["equal_before"] and fig7["differ_after"]):
+            raise AssertionError(f"fig7: {fig7}")
+
+        # 4. One advisory autopilot pack: fig7's setting at lr 5e-3, where
+        # some lanes spike, 8 seeds.
+        guarded = [dataclasses.replace(base, seed=s, lr=5e-3,
+                                       guard="autopilot",
+                                       label="autopilot.e2m1")
+                   for s in range(LANES)]
+        adv = list(run_sweep(guarded, device=dev))
+        auto = {"lanes": len(adv), "spiking": sum(r.spikes > 0 for r in adv),
+                "journals": [len(r.guard_journal) for r in adv],
+                "trigger_steps": [r.guard_trigger_step for r in adv],
+                "advisory": all(r.guard_advisory for r in adv)}
+        print("[sweep] autopilot " + json.dumps(auto), flush=True)
+        if not auto["advisory"] or any(
+                r.spikes > 0 and not r.guard_journal for r in adv):
+            raise AssertionError(f"autopilot: {auto}")
+
+        # 5. One kind="lm" run of table1 "quick" through the Trainer.
+        lm = next(r for r in table1_spec("quick").expand()
+                  if r.scheme == "e4m3_bf16act")
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        r_lm = run_sweep([lm], keep_history=True, device=dev)[lm.run_id]
+        lm_out = {"label": r_lm.label, "steps": r_lm.steps,
+                  "final_loss": r_lm.final_loss, "min_loss": r_lm.min_loss,
+                  "wall_s": time.perf_counter() - t0,
+                  "launches": {k: v for k, v in ops.LAUNCHES.items() if v}}
+        print("[sweep] lm " + json.dumps(lm_out), flush=True)
+        if r_lm.steps != lm.steps or not np.isfinite(
+                r_lm.history["loss"]).all():
+            raise AssertionError(f"lm run: {lm_out}")
+    return out
+
+
+def _profile_kernels(fn):
+    """(device kernels of one ``fn()`` call by name, their device ms, the
+    call's wall ms) from a profiler window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return ({r.key: r.count for r in prof.key_averages()
+             if r.device_type == torch.autograd.DeviceType.CUDA},
+            _kernel_us(prof) / 1e3, wall)
+
+
+def _timed_sweep(runs, dev, mode, keep_params=False):
+    """run_sweep(runs) with histories, and its wall time."""
+    from repro_torch.sweep import run_sweep
+    _sync(dev)
+    t0 = time.perf_counter()
+    rep = run_sweep(runs, keep_history=True, keep_params=keep_params,
+                    mode=mode, device=dev)
+    _sync(dev)
+    return rep, time.perf_counter() - t0
+
+
+def phase_sweep_parity(dev: str = "cuda", steps: int = 50,
+                       proxy_steps: int = 20):
+    """[sweep-parity]: the five fig6 schemes x 8 seeds, ``steps`` steps,
+    packed against mode="sequential" (one-lane packs): loss and grad-norm
+    histories within the reference's rtol/atol, spike flags equal, the
+    lanes bitwise equal counted; kernel launches of one pack step at 8
+    lanes against one lane (only the per-lane batch draws may differ, and
+    are counted); the reference's own gate (8 seeds, d 64, 2 layers, batch
+    128, mxfp8_e4m3, 40 steps): packed at least SWEEP_GATE times faster
+    than sequential in wall time with final-loss drift under SWEEP_DRIFT;
+    the same ratio at ProxyConfig() width, printed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.diagnostics import tree_leaves_with_path as \
+        tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.sweep import ProxyPack, RunSpec, get_sweep_spec
+
+    cuda = torch.device(dev).type == "cuda"
+    runs = [dataclasses.replace(r, steps=steps)
+            for r in get_sweep_spec("fig6", "full").expand()]
+    packed, t_packed = _timed_sweep(runs, dev, "auto", keep_params=True)
+    seq, t_seq = _timed_sweep(runs, dev, "sequential", keep_params=True)
+    worst, bitwise, flags_equal = 0.0, 0, True
+    same_params = sum(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        tree_leaves(packed[r.run_id].final_params),
+        tree_leaves(seq[r.run_id].final_params))) for r in runs)
+    for r in runs:
+        a, b = packed[r.run_id].history, seq[r.run_id].history
+        for key in ("loss", "grad_norm"):
+            x, y = np.asarray(a[key]), np.asarray(b[key])
+            fin = np.isfinite(y)
+            if not (np.isfinite(x) == fin).all():
+                worst = float("inf")
+                continue
+            err = np.abs(x[fin] - y[fin]) / (SWEEP_ATOL
+                                             + SWEEP_RTOL * np.abs(y[fin]))
+            worst = max(worst, float(err.max()) if err.size else 0.0)
+        bitwise += a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+        flags_equal &= a["spike_flags"] == b["spike_flags"]
+    parity = {"runs": len(runs), "steps": steps, "worst_err_over_tol": worst,
+              "lanes_bitwise": bitwise, "params_bitwise": same_params,
+              "spike_flags_equal": flags_equal,
+              "packed_s": t_packed, "sequential_s": t_seq}
+    print("[sweep-parity] " + json.dumps(parity), flush=True)
+    if worst > 1.0 or not flags_equal:
+        raise AssertionError(f"sweep parity: {parity}")
+
+    # Launches of one pack step, 8 lanes against 1 (an MX scheme's pack),
+    # and of its batch draw alone (each lane's x, teacher forward and
+    # label noise, drawn as a one-lane run draws them).
+    launches = None
+    if cuda:
+        from repro_torch.models import proxy_batch
+        mx = [r for r in runs if r.scheme == "mxfp4_e2m1"]
+        counts = {}
+        for lanes in (LANES, 1):
+            pack = ProxyPack(mx[:lanes], dev)
+            for s in range(2):
+                pack.step(s, pack.qcfg0)
+            ops.reset_launches()
+            step_k, busy, wall = _profile_kernels(
+                lambda: pack.step(2, pack.qcfg0))
+            ours = dict(ops.LAUNCHES)
+            draw_k = _profile_kernels(lambda: proxy_batch(
+                2, pack.teachers, pack.cfg, pack.seeds))[0]
+            counts[lanes] = (sum(step_k.values()), ours,
+                             sum(draw_k.values()), busy, wall)
+        (k8, o8, d8, busy8, wall8), (k1, o1, d1, busy1, wall1) = (
+            counts[LANES], counts[1])
+        launches = {"lanes": LANES, "kernels_per_step": k8,
+                    "kernels_per_step_one_lane": k1,
+                    "kernel_ms_per_step": busy8,
+                    "profiled_step_ms": wall8,
+                    "idle_share": 1 - busy8 / wall8,
+                    "kernel_ms_per_step_one_lane": busy1,
+                    "profiled_step_ms_one_lane": wall1,
+                    "batch_draw_kernels": d8,
+                    "batch_draw_kernels_one_lane": d1,
+                    "batch_draw_kernels_per_lane": (d8 - d1) / (LANES - 1),
+                    "ours_per_step": {k: v for k, v in o8.items() if v},
+                    "ours_equal": o8 == o1}
+        print("[sweep-parity] launches " + json.dumps(launches), flush=True)
+        # the lanes add their batch draws and nothing else
+        if not o8 == o1 or k8 - k1 != d8 - d1:
+            raise AssertionError(f"launches per pack step grow with the "
+                                 f"lane count: {launches}")
+
+    # The reference's gate, then the same ratio at ProxyConfig() width.
+    gates = {}
+    for label, kw, n_steps in (
+            ("gate", dict(d_model=64, n_layers=2, batch_size=128), 40),
+            ("ProxyConfig", dict(d_model=512, n_layers=4, batch_size=2048),
+             proxy_steps)):
+        base = RunSpec(kind="proxy", steps=n_steps, lr=1e-3,
+                       scheme="mxfp8_e4m3", teacher_seed=1, **kw)
+        seeds = [dataclasses.replace(base, seed=s) for s in range(LANES)]
+        _timed_sweep([dataclasses.replace(base, seed=100, steps=2)], dev,
+                     "auto")   # warm-up: first calls off the clock
+        vec, t_vec = _timed_sweep(seeds, dev, "auto")
+        sq, t_sq = _timed_sweep(seeds, dev, "sequential")
+        fv = np.asarray([vec[r.run_id].final_loss for r in seeds])
+        fs = np.asarray([sq[r.run_id].final_loss for r in seeds])
+        drift = float(np.max(np.abs(fv - fs) / np.maximum(np.abs(fs),
+                                                          1e-9)))
+        gates[label] = {"lanes": LANES, "steps": n_steps, **kw,
+                        "packed_s": t_vec, "sequential_s": t_sq,
+                        "speedup": t_sq / t_vec, "final_loss_drift": drift}
+        print(f"[sweep-parity] {label} " + json.dumps(gates[label]),
+              flush=True)
+    g = gates["gate"]
+    if cuda and not (g["speedup"] >= SWEEP_GATE
+                     and g["final_loss_drift"] < SWEEP_DRIFT):
+        raise AssertionError(f"sweep gate: {g}")
+    return {"parity": parity, "launches": launches, "gates": gates}
 
 
 def _requests(vocab: int):
@@ -3000,6 +3613,7 @@ def main() -> int:
     rows = phase_kernels()
     lowbit_kernels()
     phase_scale_modes()
+    rows.update(phase_lanes())
     cfg = get_config("olmo-paper", "full")
     params = lm_init(cfg, torch.Generator().manual_seed(SEED), "cuda")
     per_prefill, per_decode = launches_per_call(params, cfg)
@@ -3009,18 +3623,22 @@ def main() -> int:
     phase_grad_parity(params, cfg)
     phase_recovery(params, cfg)
     phase_proxy()
+    sweep = phase_sweep()
+    phase_sweep_parity()
     paged_parity = phase_paged_parity(params, cfg)
     paged = phase_paged(params, cfg)
 
     # "launches": each kernel's count over the run of its own path under
     # mxfp8_e4m3, counts set to 0 just before it (serving for the slice-1
     # kernels, 20 training steps for the backward kernels, the paged
-    # engine's bursty trace for the paged decode kernel).
+    # engine's bursty trace for the paged decode kernel, the fig6 sweep at
+    # full budget for the lane kernels).
     serve_path = ("mx_quantize", "mx_matmul", "mx_flash_attention",
                   "mx_attention_decode")
     train_counts = train["mxfp8_e4m3"]["counts"]
     paged_counts = paged["mxfp8_e4m3"]["launches"]["paged"]
     per_paged = paged_parity["mxfp8_e4m3"]["launches_per_paged_decode_step"]
+    sweep_counts = sweep["fig6"]["launches"]
     kernels = []
     for name, (sources, replaces) in ops.KERNELS.items():
         row = rows[name]
@@ -3030,7 +3648,11 @@ def main() -> int:
             "launches": (counts["mxfp8_e4m3"][name] if name in serve_path
                          else paged_counts[name]
                          if name == "mx_attention_decode_paged"
+                         else sweep_counts[name] if name in LANE_KERNELS
                          else train_counts[name]),
+            "launches_sweep": sweep_counts[name],
+            "launches_per_pack_step":
+                sweep["fig6"]["launches_per_pack_step"].get(name, 0),
             "launches_serve": counts["mxfp8_e4m3"][name],
             "launches_train": train_counts[name],
             "launches_paged": paged_counts[name],

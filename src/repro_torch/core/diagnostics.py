@@ -8,8 +8,9 @@ Counterpart of ``repro.core.diagnostics`` (the paper's §5 methodology):
 
 plus the §6.1 clamp-fraction monitors and the App. B spike heuristic.
 Gradient trees are nested dicts/lists of tensors; results are 0-d tensors
-on the trees' device (no host sync), except ``SpikeDetector``, which
-consumes floats.
+on the trees' device (no host sync), or (L,) for lane-stacked trees
+(``zeta_bound_lanes``), except ``SpikeDetector`` and
+``BatchedSpikeDetector``, which consume floats.
 """
 from __future__ import annotations
 
@@ -21,8 +22,9 @@ import torch
 from .mx import mx_stats
 from .qconfig import QuantConfig
 
-__all__ = ["SpikeDetector", "grad_bias_probe", "ln_clamp_stats",
-           "zeta_bound", "tree_leaves_with_path"]
+__all__ = ["SpikeDetector", "BatchedSpikeDetector", "grad_bias_probe",
+           "ln_clamp_stats", "zeta_bound", "zeta_bound_lanes",
+           "tree_leaves_with_path"]
 
 
 def tree_leaves_with_path(tree, prefix=()):
@@ -57,6 +59,22 @@ def zeta_bound(g_exact, g_quant) -> Dict[str, torch.Tensor]:
                                           min=1e-30)
     return {"norm_ratio": ratio, "cosine": cos, "g_norm": gn,
             "gq_norm": torch.linalg.norm(gq)}
+
+
+def zeta_bound_lanes(g_exact, g_quant) -> Dict[str, torch.Tensor]:
+    """:func:`zeta_bound` of each lane of lane-stacked gradient trees
+    (every leaf (L, ...)): each value is (L,), lane l's from lane l's
+    leaves alone."""
+    def flat(tree):
+        return torch.cat([t.reshape(t.shape[0], -1).to(torch.float32)
+                          for _, t in tree_leaves_with_path(tree)], dim=1)
+    ge, gq = flat(g_exact), flat(g_quant)
+    gn = torch.linalg.norm(ge, dim=1)
+    gqn = torch.linalg.norm(gq, dim=1)
+    ratio = torch.linalg.norm(gq - ge, dim=1) / torch.clamp(gn, min=1e-30)
+    cos = torch.sum(gq * ge, dim=1) / torch.clamp(gqn * gn, min=1e-30)
+    return {"norm_ratio": ratio, "cosine": cos, "g_norm": gn,
+            "gq_norm": gqn}
 
 
 def grad_bias_probe(grad_fn: Callable, params, batch,
@@ -127,3 +145,50 @@ class SpikeDetector:
             self._gnorms.append(grad_norm)
         self.n_spikes += int(spiked)
         return spiked
+
+
+class BatchedSpikeDetector:
+    """Per-lane spike accounting for lane-packed sweeps.
+
+    One independent :class:`SpikeDetector` per lane: lane ``i`` sees only
+    lane ``i``'s history, so a pack gives exactly the flags a standalone
+    run of each lane would (no leakage through shared windows or running
+    medians).  Host-side: it takes the (lanes,) per-step slices after the
+    pack's device-to-host transfer.  A copy of the reference's."""
+
+    def __init__(self, n_lanes: int, spike_factor: float = 100.0,
+                 grad_factor: float = 50.0, window: int = 64):
+        self.lanes = [SpikeDetector(spike_factor, grad_factor, window)
+                      for _ in range(n_lanes)]
+
+    def update(self, losses, grad_norms=None):
+        """(lanes,) losses [+ grad norms] -> (lanes,) bool spike flags."""
+        import numpy as np
+        losses = np.asarray(losses, np.float64)
+        if grad_norms is None:
+            return np.asarray([d.update(float(x))
+                               for d, x in zip(self.lanes, losses)])
+        grad_norms = np.asarray(grad_norms, np.float64)
+        return np.asarray([d.update(float(x), float(g)) for d, x, g
+                           in zip(self.lanes, losses, grad_norms)])
+
+    @property
+    def n_spikes(self):
+        import numpy as np
+        return np.asarray([d.n_spikes for d in self.lanes])
+
+    @staticmethod
+    def flags(losses, grad_norms=None, spike_factor: float = 100.0,
+              grad_factor: float = 50.0, window: int = 64):
+        """(lanes, steps) histories -> (lanes, steps) bool spike flags."""
+        import numpy as np
+        losses = np.atleast_2d(np.asarray(losses, np.float64))
+        det = BatchedSpikeDetector(losses.shape[0], spike_factor,
+                                   grad_factor, window)
+        out = []
+        for t in range(losses.shape[1]):
+            g = None if grad_norms is None else \
+                np.asarray(grad_norms, np.float64)[:, t]
+            out.append(det.update(losses[:, t], g))
+        return np.stack(out, axis=1) if out else \
+            np.zeros(losses.shape, bool)

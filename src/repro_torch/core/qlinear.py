@@ -8,6 +8,14 @@ Counterpart of ``repro.core.qlinear``, with the kinds
                  some operand format of that GEMM is set; with both
                  operands raw it is a plain matmul with fp32 accumulation,
                  as the reference's ``_mm``.
+  "bmm"          x (..., E, T, K) @ W (E, K, N): "dense" lane by lane (the
+                 reference vmaps ``_dense`` over E and the leading axes), a
+                 weight per lane; each of its three GEMMs goes to the lane
+                 kernels (``ops.mx_matmul_lanes`` and its dgrad/wgrad
+                 twins) as "dense" goes to the 2-D ones; an unquantized
+                 product is a batched matmul (``_lane_mm``).  Leading
+                 axes fold into the lanes with W repeated, and W's
+                 gradient sums over them.
   "flash_attn"   the fused QK^T / online softmax / PV forward on the folded
                  layout q (BH,G,Tq,d) x (k (BH,Tk,d), v (BH,Tk,dv)); masks
                  and tiles come from an AttnSpec.  Uses the flash kernels
@@ -109,6 +117,85 @@ class _Dense(torch.autograd.Function):
         return dx, dw, None
 
 
+def _t(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-1, -2)
+
+
+#: Lanes per call of an unquantized lane product (``_lane_mm``).
+LANE_CHUNK = 8
+
+
+def _lane_mm(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """``_mm`` of lane operands (E, T, K) @ (E, K, N).  On the card the
+    operands are made contiguous and the product runs on chunks of
+    LANE_CHUNK lanes, the last zero padded: cuBLAS picks its kernel and
+    its split of the contraction by the call's shape, batch size
+    included, so a lane's bits would otherwise depend on how many lanes
+    share the call (a one-lane pack against an eight-lane one)."""
+    if not a.is_cuda:
+        return _mm(a, b, out_dtype)
+    E = a.shape[0]
+    pad = -E % LANE_CHUNK
+    a, b = a.contiguous(), b.contiguous()
+    if pad:
+        a = torch.cat([a, a.new_zeros((pad,) + a.shape[1:])])
+        b = torch.cat([b, b.new_zeros((pad,) + b.shape[1:])])
+    out = torch.cat([_mm(a[i:i + LANE_CHUNK], b[i:i + LANE_CHUNK],
+                         out_dtype) for i in range(0, E + pad, LANE_CHUNK)])
+    return out[:E]
+
+
+class _Bmm(torch.autograd.Function):
+    """"dense" per lane of x (E, T, K) and W (E, K, N): the forward, dgrad
+    and wgrad are the lane kernels (one launch each for all E lanes), or
+    the quantized operands' batched product where "dense" takes its
+    emulation path."""
+
+    @staticmethod
+    def forward(ctx, x, w, cfg: QuantConfig):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = cfg
+        return _gemm(ops.mx_matmul_lanes,
+                     lambda a, b: _lane_mm(a, b, x.dtype), x, w, cfg.a_fwd,
+                     cfg.w_fwd, (-1, 1), cfg).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        cfg = ctx.cfg
+        dx = dw = None
+        if not cfg.quantize_bwd:
+            if ctx.needs_input_grad[0]:
+                dx = _lane_mm(dy, _t(w), x.dtype)
+            if ctx.needs_input_grad[1]:
+                dw = _lane_mm(_t(x), dy, w.dtype)
+            return dx, dw, None
+        if ctx.needs_input_grad[0]:
+            dx = _gemm(ops.mx_matmul_dgrad_lanes,
+                       lambda g, ww: _lane_mm(g, _t(ww), x.dtype), dy, w,
+                       cfg.g_bwd, cfg.w_bwd, (-1, -1), cfg).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _gemm(ops.mx_matmul_wgrad_lanes,
+                       lambda a, g: _lane_mm(_t(a), g, w.dtype), x, dy,
+                       cfg.a_bwd, cfg.g_bwd, (1, 1), cfg).to(w.dtype)
+        return dx, dw, None
+
+
+def _bmm(lhs: torch.Tensor, rhs: torch.Tensor, cfg: QuantConfig):
+    if rhs.ndim != 3 or lhs.ndim < 3 or lhs.shape[-3] != rhs.shape[0]:
+        raise ValueError(f"kind='bmm' takes lhs (..., E, T, K) and rhs "
+                         f"(E, K, N), got {tuple(lhs.shape)}, "
+                         f"{tuple(rhs.shape)}")
+    lead = lhs.shape[:-3]
+    if not lead:
+        return _Bmm.apply(lhs, rhs, cfg)
+    E, T, K = lhs.shape[-3:]
+    n = lhs.numel() // (E * T * K)
+    w = rhs.unsqueeze(0).expand(n, *rhs.shape).reshape(n * E, *rhs.shape[1:])
+    out = _Bmm.apply(lhs.reshape(n * E, T, K), w, cfg)
+    return out.reshape(lead + (E,) + out.shape[1:])
+
+
 class _Flash(torch.autograd.Function):
     """Flash forward saving (q, k, v, out, lse); the backward is the flash
     dgrad (``repro.core.qlinear._flash_fwd`` / ``_flash_bwd``)."""
@@ -141,6 +228,8 @@ def mx_contract(lhs, rhs, cfg: QuantConfig, *, kind: str = "dense",
     ``pages`` is the page table of "attn_decode_paged"."""
     if kind == "dense":
         return _Dense.apply(lhs, rhs, cfg)
+    if kind == "bmm":
+        return _bmm(lhs, rhs, cfg)
     if kind == "flash_attn":
         if spec is None:
             raise ValueError("kind='flash_attn' requires spec=AttnSpec(...)")
@@ -163,6 +252,6 @@ def mx_contract(lhs, rhs, cfg: QuantConfig, *, kind: str = "dense",
                                              block=cfg.block,
                                              scale_mode=cfg.scale_mode)
     raise ValueError(f"unknown mx_contract kind {kind!r}; expected one of "
-                     "['attn_decode', 'attn_decode_paged', 'dense', "
+                     "['attn_decode', 'attn_decode_paged', 'bmm', 'dense', "
                      "'flash_attn'] (the other reference kinds come with "
                      "later slices of the port)")

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.devices import resolve_device
 
-__all__ = ["lm_batch"]
+__all__ = ["lm_batch", "lm_input_arrays"]
 
 
 def lm_batch(step: int, vocab: int, batch: int, seq: int, seed: int = 0,
@@ -34,3 +34,15 @@ def lm_batch(step: int, vocab: int, batch: int, seq: int, seed: int = 0,
     rand = torch.randint(0, vocab, toks.shape, generator=g)
     toks = torch.where(corrupt, rand, toks).to(device)
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def lm_input_arrays(step: int, cfg, batch: int, seq: int, seed: int = 0,
+                    device=None) -> Dict[str, torch.Tensor]:
+    """The full input dict of an LMConfig's step.  The port's models have
+    no modality frontend (ROADMAP Queue A item 4), so this is
+    :func:`lm_batch` at the config's vocabulary; a frontend raises."""
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"lm_input_arrays: frontend {cfg.frontend!r} is ROADMAP Queue A "
+            "item 4, not ported yet")
+    return lm_batch(step, cfg.vocab, batch, seq, seed, device=device)

@@ -43,6 +43,17 @@
 //   partial to a workspace and `mx_tn_reduce_kernel` sums the splits in a
 //   fixed order.  No float atomics, so a replayed step gives the same
 //   bits.  Only the summation order differs from the plain version.
+// Lanes: every product runs over L lanes, each with its own A and B (the
+//   lane GEMMs of a sweep's lane-stacked proxy, `ops.mx_matmul_lanes` and
+//   its dgrad/wgrad twins; L = 1 for the 2-D GEMMs).  The operands lie
+//   lane after lane; the tensor maps are rank 3 (depth, row, lane) with a
+//   box one lane deep, so the shared-memory tile and its swizzle are the
+//   2-D ones, a tile never reads another lane's rows and TMA zero fills
+//   each lane's ragged edge.  blockIdx.z is lane x split; the epilogue and
+//   the split-K workspace are offset by lane.  The plan (tiles, depth,
+//   splits) is the one-lane plan of the per-lane shape, so lane l of a
+//   lane call gives bitwise the 2-D result on lane l's operands, whatever
+//   L is: the plan does not depend on who shares the call.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums (types only; no -lcuda)
@@ -115,14 +126,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
-// TMA: the (c0 = contraction, c1 = row) box of `map` into dst; completion
-// is counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
+// TMA: the (c0 = contraction, c1 = row, c2 = lane) box of `map` into dst;
+// completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
   asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -258,7 +270,8 @@ __device__ __forceinline__ void load8<__nv_bfloat16>(const __nv_bfloat16* p,
 }
 
 // Pre-pass, token-major operand: src (Tn, C) quantized along Tn and written
-// transposed into dst (C, depth) bf16, zero padded on [Tn, depth).  A CTA
+// transposed into dst (C, depth) bf16, zero padded on [Tn, depth); lane
+// blockIdx.z reads src + z Tn C and writes dst + z C depth.  A CTA
 // owns a 64-token x 64-column tile: coalesced loads (16 bytes a thread
 // when VEC: C % 8 == 0 and src 16-byte aligned), one mx_warp_quant per
 // (column, 32-block) from shared memory with lane = token, and 16-byte
@@ -270,6 +283,8 @@ mx_operand_cols_kernel(const T* __restrict__ src,
                        int depth, int has, MxFmt f) {
   __shared__ float tile[PRE_T][PRE_T + 1];                    // [token][col]
   __shared__ __align__(16) __nv_bfloat16 out[PRE_T][PRE_T + 8];  // [col][t]
+  src += (long long)blockIdx.z * Tn * C;
+  dst += (long long)blockIdx.z * C * depth;
   const int t0 = blockIdx.y * PRE_T, c0 = blockIdx.x * PRE_T;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (VEC) {
@@ -351,9 +366,10 @@ __device__ __forceinline__ void store_tile(const float* d, uint8_t* smem,
   }
 }
 
-// One BM x BN tile of C over k-tiles [z * per, min((z + 1) * per,
-// ktiles)) of split z = blockIdx.z.  With `part` set the fp32 sums go to
-// part[(z * M + m) * N + n]; else C gets OutT.  `m_fast`: blockIdx.x walks
+// One BM x BN tile of lane l's C over k-tiles [z * per, min((z + 1) * per,
+// ktiles)) of split z, where blockIdx.z = l * splits + z.  With `part` set
+// the fp32 sums go to part[((l * splits + z) * M + m) * N + n]; else
+// C + l M N gets OutT.  `m_fast`: blockIdx.x walks
 // the M tiles (chosen when they are fewer, so the CTAs that share a tile
 // of the larger operand run together).
 template <typename OutT>
@@ -361,7 +377,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 mx_tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
                   const __grid_constant__ CUtensorMap map_b,
                   OutT* __restrict__ C, float* __restrict__ part, int M,
-                  int N, int ktiles, int per, int m_fast) {
+                  int N, int ktiles, int per, int m_fast, int splits) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
@@ -369,7 +385,8 @@ mx_tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
   const int tm = m_fast ? blockIdx.x : blockIdx.y;
   const int tn = m_fast ? blockIdx.y : blockIdx.x;
   const int m0 = tm * BM, n0 = tn * BN;
-  const int kt0 = blockIdx.z * per;
+  const int lane_id = blockIdx.z / splits;
+  const int kt0 = (blockIdx.z - lane_id * splits) * per;
   const int nk = max(min(kt0 + per, ktiles) - kt0, 0);
   const int wg = threadIdx.x / 128;
 
@@ -392,8 +409,8 @@ mx_tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         uint8_t* st = smem + s * STAGE_BYTES;
         mbar_expect_tx(&full[s], STAGE_BYTES);
         const int k = (kt0 + i) * BK;
-        tma_load_2d(st, &map_a, &full[s], k, m0);
-        tma_load_2d(st + A_BYTES, &map_b, &full[s], k, n0);
+        tma_load_3d(st, &map_a, &full[s], k, m0, lane_id);
+        tma_load_3d(st + A_BYTES, &map_b, &full[s], k, n0, lane_id);
       }
     }
     return;
@@ -432,18 +449,22 @@ mx_tn_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
     store_tile<float>(d, smem, part + (long long)blockIdx.z * M * N, M, N,
                       m0, n0, wg);
   else
-    store_tile<OutT>(d, smem, C, M, N, m0, n0, wg);
+    store_tile<OutT>(d, smem, C + (long long)lane_id * M * N, M, N, m0, n0,
+                     wg);
 }
 
-// C = OutT(sum over splits of part), summed in split order.
+// C = OutT(sum over splits of part), each lane's splits summed in split
+// order; i runs over lanes * MN.
 template <typename OutT>
 __global__ void mx_tn_reduce_kernel(const float* __restrict__ part,
                                     OutT* __restrict__ C, long long MN,
-                                    int splits) {
+                                    int splits, int lanes) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MN) return;
+  if (i >= MN * lanes) return;
+  const long long l = i / MN;
+  const float* p = part + l * splits * MN + (i - l * MN);
   float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[z * MN + i];
+  for (int z = 0; z < splits; ++z) s += p[z * MN];
   mx_store<OutT>(C + i, s);
 }
 
@@ -466,59 +487,66 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a contraction-major bf16 operand: `rows` rows of `kext`
-// elements, `ld` elements apart; boxes of BK x box_rows with the 128-byte
-// swizzle; reads past either extent are filled with zeros.
-static bool make_map(CUtensorMap* map, const void* p, int rows, int kext,
-                     long long ld, int box_rows) {
+// A GEMM operand: `lanes` x `rows` contraction-major rows of bf16.
+struct Operand {
+  const __nv_bfloat16* p;
+  long long ld;       // elements between rows
+  int kext;           // valid contraction extent (TMA zero fills past it)
+  long long lstride;  // elements between lanes
+};
+
+// Rank-3 tensor map (depth, row, lane) of an operand with `rows` rows a
+// lane; boxes of BK x box_rows x 1 lane with the 128-byte swizzle (the
+// 2-D tile's layout); reads past the extent or past a lane's last row are
+// filled with zeros.
+static bool make_map(CUtensorMap* map, const Operand& op, int rows,
+                     int lanes, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)kext, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+  const cuuint64_t dims[3] = {(cuuint64_t)op.kext, (cuuint64_t)rows,
+                              (cuuint64_t)lanes};
+  const cuuint64_t strides[2] = {(cuuint64_t)op.ld * 2,
+                                 (cuuint64_t)op.lstride * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)BK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<__nv_bfloat16*>(op.p),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A GEMM operand: `rows` contraction-major rows of bf16.
-struct Operand {
-  const __nv_bfloat16* p;
-  long long ld;   // elements between rows
-  int kext;       // valid contraction extent (TMA zero fills past it)
-};
-
-// Pre-pass of a contraction-contiguous operand src (R, Kc).  With scratch
-// null the operand is used in place (a raw bf16 operand: the caller
-// checks that its rows are 16-byte aligned).
+// Pre-pass of a contraction-contiguous operand src (lanes, R, Kc), whose
+// lanes * R rows it walks as one flat run of rows.  With scratch null the
+// operand is used in place (a raw bf16 operand: the caller checks that its
+// rows are 16-byte aligned).
 template <typename T>
-static int operand_rows(const void* src, void* scratch, long long R, int Kc,
-                        int depth, int has, MxFmt f, cudaStream_t s,
+static int operand_rows(const void* src, void* scratch, int lanes, int R,
+                        int Kc, int depth, int has, MxFmt f, cudaStream_t s,
                         Operand* op) {
   if (!scratch) {
     if (has || sizeof(T) != 2) return (int)cudaErrorInvalidValue;
-    *op = {(const __nv_bfloat16*)src, Kc, Kc};
+    *op = {(const __nv_bfloat16*)src, Kc, Kc, (long long)R * Kc};
     return 0;
   }
+  const long long rows = (long long)lanes * R;
   const int per_cta = 8 * 32 * ROWS_BPW;
   dim3 grid((depth + per_cta - 1) / per_cta,
-            (unsigned)(R < 65535 ? R : 65535));
+            (unsigned)(rows < 65535 ? rows : 65535));
   mx_operand_rows_kernel<T><<<grid, 256, 0, s>>>(
-      (const T*)src, (__nv_bfloat16*)scratch, R, Kc, depth, has, f);
-  *op = {(const __nv_bfloat16*)scratch, depth, depth};
+      (const T*)src, (__nv_bfloat16*)scratch, rows, Kc, depth, has, f);
+  *op = {(const __nv_bfloat16*)scratch, depth, depth, (long long)R * depth};
   return (int)cudaGetLastError();
 }
 
-// Pre-pass of a token-major operand src (Tn, C): quantized along Tn into
-// scratch (C, depth).
+// Pre-pass of a token-major operand src (lanes, Tn, C): each lane
+// quantized along Tn into scratch (lanes, C, depth).
 template <typename T>
-static int operand_cols(const void* src, void* scratch, int Tn, int C,
-                        int depth, int has, MxFmt f, cudaStream_t s,
+static int operand_cols(const void* src, void* scratch, int lanes, int Tn,
+                        int C, int depth, int has, MxFmt f, cudaStream_t s,
                         Operand* op) {
-  if (!scratch) return (int)cudaErrorInvalidValue;
-  dim3 grid((C + PRE_T - 1) / PRE_T, depth / PRE_T);
+  if (!scratch || lanes > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((C + PRE_T - 1) / PRE_T, depth / PRE_T, lanes);
   const bool vec = C % 8 == 0 && (uintptr_t)src % 16 == 0;
   if (vec)
     mx_operand_cols_kernel<T, true><<<grid, 256, 0, s>>>(
@@ -526,18 +554,19 @@ static int operand_cols(const void* src, void* scratch, int Tn, int C,
   else
     mx_operand_cols_kernel<T, false><<<grid, 256, 0, s>>>(
         (const T*)src, (__nv_bfloat16*)scratch, Tn, C, depth, has, f);
-  *op = {(const __nv_bfloat16*)scratch, depth, depth};
+  *op = {(const __nv_bfloat16*)scratch, depth, depth, (long long)C * depth};
   return (int)cudaGetLastError();
 }
 
-// C (M, N) = A @ B^T over `depth` (a multiple of BK) in `splits`
-// contraction splits; `workspace` holds splits * M * N floats when
-// splits > 1.
+// C (lanes, M, N) = A @ B^T lane by lane over `depth` (a multiple of BK)
+// in `splits` contraction splits a lane; `workspace` holds
+// lanes * splits * M * N floats when splits > 1.
 template <typename OutT>
 static int tn_gemm(const Operand& a, const Operand& b, void* c,
                    void* workspace, int M, int N, int depth, int splits,
-                   cudaStream_t s) {
-  if (splits < 1 || depth % BK || (splits > 1 && !workspace))
+                   int lanes, cudaStream_t s) {
+  if (splits < 1 || lanes < 1 || (long long)lanes * splits > 65535 ||
+      depth % BK || (splits > 1 && !workspace))
     return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(mx_tn_gemm_kernel<OutT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -545,22 +574,23 @@ static int tn_gemm(const Operand& a, const Operand& b, void* c,
   int rc = (int)cudaGetLastError();
   if (rc) return rc;
   CUtensorMap ma, mb;
-  if (!make_map(&ma, a.p, M, a.kext, a.ld, BM) ||
-      !make_map(&mb, b.p, N, b.kext, b.ld, BN))
+  if (!make_map(&ma, a, M, lanes, BM) || !make_map(&mb, b, N, lanes, BN))
     return (int)cudaErrorInvalidValue;
   const int ktiles = depth / BK;
   const int per = (ktiles + splits - 1) / splits;
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
   const int m_fast = tiles_m <= tiles_n;
-  dim3 grid(m_fast ? tiles_m : tiles_n, m_fast ? tiles_n : tiles_m, splits);
+  dim3 grid(m_fast ? tiles_m : tiles_n, m_fast ? tiles_n : tiles_m,
+            lanes * splits);
   float* part = splits > 1 ? (float*)workspace : nullptr;
   mx_tn_gemm_kernel<OutT><<<grid, THREADS, SMEM_BYTES, s>>>(
-      ma, mb, (OutT*)c, part, M, N, ktiles, per, m_fast);
+      ma, mb, (OutT*)c, part, M, N, ktiles, per, m_fast, splits);
   rc = (int)cudaGetLastError();
   if (rc || splits == 1) return rc;
   const long long MN = (long long)M * N;
-  mx_tn_reduce_kernel<OutT><<<(unsigned)((MN + 255) / 256), 256, 0, s>>>(
-      part, (OutT*)c, MN, splits);
+  mx_tn_reduce_kernel<OutT>
+      <<<(unsigned)((MN * lanes + 255) / 256), 256, 0, s>>>(
+          part, (OutT*)c, MN, splits, lanes);
   return (int)cudaGetLastError();
 }
 }  // namespace MX_SM90_NS

@@ -23,6 +23,12 @@
 //     the strided axis: the pre-pass reads 64-token x 64-column tiles of x
 //     (T, K) and dy (T, N), quantizes each column's 32-blocks and writes
 //     the tiles transposed, xq^T (K, T) and dyq^T (N, T).
+//   `mx_matmul_dgrad_lanes` and `mx_matmul_wgrad_lanes` run both over L
+//   lanes, each with its own operands (the lane-stacked proxy of a sweep;
+//   the reference vmaps the two Pallas kernels over its lanes): the rows
+//   pre-pass walks the L lanes' rows as one run, the cols pre-pass takes a
+//   lane grid axis, the product's grid z is lane x split, and the plan is
+//   the one-lane plan, so each lane equals the 2-D call bit for bit.
 //   The wrapper allocates the scratch operands and plans the contraction
 //   splits (ops.bwd_gemm_plan); when there are splits, the fp32 partials
 //   are summed in a fixed order by a second pass: no float atomics, so a
@@ -31,77 +37,142 @@
 #define MX_SM90_NS bwd
 #include "mx_gemm_sm90.cuh"
 
-// dx (M, K) = Q(dy) (M, N) @ Q(W (K, N))^T, blocks along N.  dyq (M, depth)
-// may be null for a raw bf16 dy used in place; wq (K, depth) may be null
-// for a raw bf16 W.
-extern "C" int mx_matmul_dgrad(const void* dy, const void* w, void* dx,
-                               void* workspace, void* dyq, void* wq, int M,
-                               int N, int K, int depth, int splits,
-                               int is_fp32, int has_g, int g_mbits,
-                               int g_min_normal_exp, int g_e_max,
-                               float g_max_normal, int g_scale_mode,
-                               int has_w, int w_mbits, int w_min_normal_exp,
-                               int w_e_max, float w_max_normal,
-                               int w_scale_mode, void* stream) {
-  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max, g_max_normal,
-                          g_scale_mode);
-  const MxFmt fw = mx_fmt(w_mbits, w_min_normal_exp, w_e_max, w_max_normal,
-                          w_scale_mode);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 0 || N <= 0 || K <= 0 || depth < N)
+// dx[l] (M, K) = Q(dy[l]) (M, N) @ Q(W[l] (K, N))^T, blocks along N, for
+// l < L.  dyq (L, M, depth) may be null for a raw bf16 dy used in place;
+// wq (L, K, depth) may be null for a raw bf16 W.
+template <typename T>
+static int dgrad(const void* dy, const void* w, void* dx, void* workspace,
+                 void* dyq, void* wq, int L, int M, int N, int K, int depth,
+                 int splits, int has_g, MxFmt fg, int has_w, MxFmt fw,
+                 cudaStream_t s) {
+  if (L <= 0 || M <= 0 || N <= 0 || K <= 0 || depth < N)
     return (int)cudaErrorInvalidValue;
   sm90::Operand a, b;
-  int rc = is_fp32
-               ? sm90::operand_rows<float>(dy, dyq, M, N, depth, has_g, fg,
-                                           s, &a)
-               : sm90::operand_rows<__nv_bfloat16>(dy, dyq, M, N, depth,
-                                                   has_g, fg, s, &a);
+  int rc = sm90::operand_rows<T>(dy, dyq, L, M, N, depth, has_g, fg, s, &a);
   if (rc) return rc;
-  rc = is_fp32 ? sm90::operand_rows<float>(w, wq, K, N, depth, has_w, fw, s,
-                                           &b)
-               : sm90::operand_rows<__nv_bfloat16>(w, wq, K, N, depth, has_w,
-                                                   fw, s, &b);
+  rc = sm90::operand_rows<T>(w, wq, L, K, N, depth, has_w, fw, s, &b);
   if (rc) return rc;
-  // Output (M, K); the contraction runs over N.
-  return is_fp32 ? sm90::tn_gemm<float>(a, b, dx, workspace, M, K, depth,
-                                        splits, s)
-                 : sm90::tn_gemm<__nv_bfloat16>(a, b, dx, workspace, M, K,
-                                                depth, splits, s);
+  // Output (M, K) a lane; the contraction runs over N.
+  return sm90::tn_gemm<T>(a, b, dx, workspace, M, K, depth, splits, L, s);
 }
 
-// dW (K, N) = Q(x (T, K))^T @ Q(dy (T, N)), blocks along T.  xq (K, depth)
-// and dyq (N, depth) receive the transposed operands.
-extern "C" int mx_matmul_wgrad(const void* x, const void* dy, void* dw,
-                               void* workspace, void* xq, void* dyq, int T,
-                               int K, int N, int depth, int splits,
-                               int is_fp32, int has_a, int a_mbits,
-                               int a_min_normal_exp, int a_e_max,
-                               float a_max_normal, int a_scale_mode,
-                               int has_g, int g_mbits, int g_min_normal_exp,
-                               int g_e_max, float g_max_normal,
-                               int g_scale_mode, void* stream) {
-  const MxFmt fa = mx_fmt(a_mbits, a_min_normal_exp, a_e_max, a_max_normal,
-                          a_scale_mode);
-  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max, g_max_normal,
-                          g_scale_mode);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (T <= 0 || K <= 0 || N <= 0 || depth < T)
+// dW[l] (K, N) = Q(x[l] (T, K))^T @ Q(dy[l] (T, N)), blocks along T, for
+// l < L.  xq (L, K, depth) and dyq (L, N, depth) receive the transposed
+// operands.
+template <typename T>
+static int wgrad(const void* x, const void* dy, void* dw, void* workspace,
+                 void* xq, void* dyq, int L, int T_, int K, int N, int depth,
+                 int splits, int has_a, MxFmt fa, int has_g, MxFmt fg,
+                 cudaStream_t s) {
+  if (L <= 0 || T_ <= 0 || K <= 0 || N <= 0 || depth < T_)
     return (int)cudaErrorInvalidValue;
   sm90::Operand a, b;
-  int rc = is_fp32
-               ? sm90::operand_cols<float>(x, xq, T, K, depth, has_a, fa, s,
-                                           &a)
-               : sm90::operand_cols<__nv_bfloat16>(x, xq, T, K, depth, has_a,
-                                                   fa, s, &a);
+  int rc = sm90::operand_cols<T>(x, xq, L, T_, K, depth, has_a, fa, s, &a);
   if (rc) return rc;
-  rc = is_fp32 ? sm90::operand_cols<float>(dy, dyq, T, N, depth, has_g, fg,
-                                           s, &b)
-               : sm90::operand_cols<__nv_bfloat16>(dy, dyq, T, N, depth,
-                                                   has_g, fg, s, &b);
+  rc = sm90::operand_cols<T>(dy, dyq, L, T_, N, depth, has_g, fg, s, &b);
   if (rc) return rc;
-  // Output (K, N); the contraction runs over T.
-  return is_fp32 ? sm90::tn_gemm<float>(a, b, dw, workspace, K, N, depth,
-                                        splits, s)
-                 : sm90::tn_gemm<__nv_bfloat16>(a, b, dw, workspace, K, N,
-                                                depth, splits, s);
+  // Output (K, N) a lane; the contraction runs over T.
+  return sm90::tn_gemm<T>(a, b, dw, workspace, K, N, depth, splits, L, s);
+}
+
+// dx (M, K) = Q(dy) (M, N) @ Q(W (K, N))^T: the one-lane dgrad.
+extern "C" int mx_matmul_dgrad(
+    const void* dy, const void* w, void* dx, void* workspace,
+    void* dyq, void* wq, int M, int N, int K, int depth, int splits,
+    int is_fp32,
+    int has_g, int g_mbits,
+    int g_min_normal_exp, int g_e_max, float g_max_normal,
+    int g_scale_mode,
+    int has_w, int w_mbits,
+    int w_min_normal_exp, int w_e_max, float w_max_normal,
+    int w_scale_mode,
+    void* stream) {
+  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max,
+                          g_max_normal, g_scale_mode);
+  const MxFmt fw = mx_fmt(w_mbits, w_min_normal_exp, w_e_max,
+                          w_max_normal, w_scale_mode);
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_fp32
+             ? dgrad<float>(dy, w, dx, workspace, dyq, wq, 1, M, N, K, depth,
+                            splits, has_g, fg, has_w, fw, s)
+             : dgrad<__nv_bfloat16>(dy, w, dx, workspace, dyq, wq, 1, M, N,
+                                    K, depth, splits, has_g, fg,
+                                    has_w, fw, s);
+}
+
+// The dgrad over L lanes: dy (L, M, N), W (L, K, N), dx (L, M, K);
+// workspace holds L * splits * M * K floats when splits > 1.
+extern "C" int mx_matmul_dgrad_lanes(
+    const void* dy, const void* w, void* dx, void* workspace,
+    void* dyq, void* wq, int L, int M, int N, int K, int depth,
+    int splits, int is_fp32,
+    int has_g, int g_mbits,
+    int g_min_normal_exp, int g_e_max, float g_max_normal,
+    int g_scale_mode,
+    int has_w, int w_mbits,
+    int w_min_normal_exp, int w_e_max, float w_max_normal,
+    int w_scale_mode,
+    void* stream) {
+  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max,
+                          g_max_normal, g_scale_mode);
+  const MxFmt fw = mx_fmt(w_mbits, w_min_normal_exp, w_e_max,
+                          w_max_normal, w_scale_mode);
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_fp32
+             ? dgrad<float>(dy, w, dx, workspace, dyq, wq, L, M, N, K, depth,
+                            splits, has_g, fg, has_w, fw, s)
+             : dgrad<__nv_bfloat16>(dy, w, dx, workspace, dyq, wq, L, M, N,
+                                    K, depth, splits, has_g, fg,
+                                    has_w, fw, s);
+}
+
+// dW (K, N) = Q(x (T, K))^T @ Q(dy (T, N)): the one-lane wgrad.
+extern "C" int mx_matmul_wgrad(
+    const void* x, const void* dy, void* dw, void* workspace,
+    void* xq, void* dyq, int T, int K, int N, int depth, int splits,
+    int is_fp32,
+    int has_a, int a_mbits,
+    int a_min_normal_exp, int a_e_max, float a_max_normal,
+    int a_scale_mode,
+    int has_g, int g_mbits,
+    int g_min_normal_exp, int g_e_max, float g_max_normal,
+    int g_scale_mode,
+    void* stream) {
+  const MxFmt fa = mx_fmt(a_mbits, a_min_normal_exp, a_e_max,
+                          a_max_normal, a_scale_mode);
+  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max,
+                          g_max_normal, g_scale_mode);
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_fp32
+             ? wgrad<float>(x, dy, dw, workspace, xq, dyq, 1, T, K, N, depth,
+                            splits, has_a, fa, has_g, fg, s)
+             : wgrad<__nv_bfloat16>(x, dy, dw, workspace, xq, dyq, 1, T, K,
+                                    N, depth, splits, has_a, fa,
+                                    has_g, fg, s);
+}
+
+// The wgrad over L lanes: x (L, T, K), dy (L, T, N), dW (L, K, N);
+// workspace holds L * splits * K * N floats when splits > 1.
+extern "C" int mx_matmul_wgrad_lanes(
+    const void* x, const void* dy, void* dw, void* workspace,
+    void* xq, void* dyq, int L, int T, int K, int N, int depth,
+    int splits, int is_fp32,
+    int has_a, int a_mbits,
+    int a_min_normal_exp, int a_e_max, float a_max_normal,
+    int a_scale_mode,
+    int has_g, int g_mbits,
+    int g_min_normal_exp, int g_e_max, float g_max_normal,
+    int g_scale_mode,
+    void* stream) {
+  const MxFmt fa = mx_fmt(a_mbits, a_min_normal_exp, a_e_max,
+                          a_max_normal, a_scale_mode);
+  const MxFmt fg = mx_fmt(g_mbits, g_min_normal_exp, g_e_max,
+                          g_max_normal, g_scale_mode);
+  cudaStream_t s = (cudaStream_t)stream;
+  return is_fp32
+             ? wgrad<float>(x, dy, dw, workspace, xq, dyq, L, T, K, N, depth,
+                            splits, has_a, fa, has_g, fg, s)
+             : wgrad<__nv_bfloat16>(x, dy, dw, workspace, xq, dyq, L, T, K,
+                                    N, depth, splits, has_a, fa,
+                                    has_g, fg, s);
 }

@@ -30,7 +30,9 @@ from . import build, ref
 
 __all__ = ["mx_quantize", "mx_matmul", "mx_matmul_dgrad", "mx_matmul_wgrad",
            "mx_flash_attention", "mx_flash_attention_bwd",
-           "mx_attention_decode", "mx_attention_decode_paged", "LAUNCHES",
+           "mx_attention_decode", "mx_attention_decode_paged",
+           "mx_matmul_lanes", "mx_matmul_dgrad_lanes",
+           "mx_matmul_wgrad_lanes", "LAUNCHES",
            "reset_launches", "KERNELS", "bwd_gemm_plan", "fwd_gemm_plan",
            "decode_plan", "SCALE_MODES"]
 
@@ -41,7 +43,9 @@ LAUNCHES: Dict[str, int] = {"mx_quantize": 0, "mx_matmul": 0,
                             "mx_flash_attention": 0,
                             "mx_flash_attention_bwd": 0,
                             "mx_attention_decode": 0,
-                            "mx_attention_decode_paged": 0}
+                            "mx_attention_decode_paged": 0,
+                            "mx_matmul_lanes": 0, "mx_matmul_dgrad_lanes": 0,
+                            "mx_matmul_wgrad_lanes": 0}
 
 _CSRC = "src/repro_torch/kernels/csrc/"
 
@@ -69,6 +73,16 @@ KERNELS = {
                             "src/repro/kernels/mx_attention.py:455"),
     "mx_attention_decode_paged": ((_CSRC + "mx_attention.cu",),
                                   "src/repro/kernels/mx_attention.py:407"),
+    # The lane GEMMs: kernels 2-4 with a lane axis, where the reference
+    # vmaps the Pallas function over a sweep's lanes.
+    "mx_matmul_lanes": ((_CSRC + "mx_matmul.cu", _CSRC + "mx_gemm_sm90.cuh"),
+                        "src/repro/kernels/mx_matmul.py:63"),
+    "mx_matmul_dgrad_lanes": ((_CSRC + "mx_matmul_bwd.cu",
+                               _CSRC + "mx_gemm_sm90.cuh"),
+                              "src/repro/kernels/mx_matmul_bwd.py:73"),
+    "mx_matmul_wgrad_lanes": ((_CSRC + "mx_matmul_bwd.cu",
+                               _CSRC + "mx_gemm_sm90.cuh"),
+                              "src/repro/kernels/mx_matmul_bwd.py:142"),
 }
 
 #: The scale rules and their codes in the kernels' format arguments
@@ -87,6 +101,12 @@ _SIGNATURES = {
                         + [_I, *_FMT, _I, *_FMT, _P]),
     "mx_matmul_wgrad": ("mx_matmul_bwd", [_P] * 6 + [_I] * 6
                         + [_I, *_FMT, _I, *_FMT, _P]),
+    "mx_matmul_lanes": ("mx_matmul", [_P] * 6 + [_I] * 7
+                        + [_I, *_FMT, _I, *_FMT, _P]),
+    "mx_matmul_dgrad_lanes": ("mx_matmul_bwd", [_P] * 6 + [_I] * 7
+                              + [_I, *_FMT, _I, *_FMT, _P]),
+    "mx_matmul_wgrad_lanes": ("mx_matmul_bwd", [_P] * 6 + [_I] * 7
+                              + [_I, *_FMT, _I, *_FMT, _P]),
     "mx_decode_smem_bytes": ("mx_attention", [_I, _I, _I, _I]),
     "mx_flash_fwd": ("mx_attention", [_P] * 6 + [_I] * 12 + [*_FMT, _F, _P]),
     "mx_flash_bwd": ("mx_attention_bwd", [_P] * 11 + [_I] * 11 + [*_FMT, _F,
@@ -215,12 +235,12 @@ def _check_gemm(name: str, a: torch.Tensor, b: torch.Tensor, fmt_a,
     return int(a.dtype == torch.float32)
 
 
-def _workspace(splits: int, rows: int, cols: int, device):
-    """fp32 split-K partials, summed by the kernel's second pass (one
-    launch of the wrapper, counted once)."""
+def _workspace(splits: int, rows: int, cols: int, device, lanes: int = 1):
+    """fp32 split-K partials of each lane, summed by the kernel's second
+    pass (one launch of the wrapper, counted once)."""
     if splits <= 1:
         return None
-    return torch.empty((splits, rows, cols), dtype=torch.float32,
+    return torch.empty((lanes * splits, rows, cols), dtype=torch.float32,
                        device=device)
 
 
@@ -384,6 +404,125 @@ def mx_matmul_wgrad(x: torch.Tensor, dy: torch.Tensor,
     _launch("mx_matmul_wgrad", "mx_matmul_wgrad", x.data_ptr(),
             dy.data_ptr(), dw.data_ptr(), _ptr(work), xq.data_ptr(),
             dyq.data_ptr(), T, K, N, depth, splits, is_fp32,
+            int(fmt_a is not None), *_fmt_args(fmt_a, scale_mode),
+            int(fmt_g is not None), *_fmt_args(fmt_g, scale_mode))
+    return dw
+
+
+# ---------------------------------------------------------------------------
+# The lane GEMMs: kernels 2-4 over L lanes, each with its own operands.
+# ---------------------------------------------------------------------------
+def _check_lanes(name: str, a: torch.Tensor, b: torch.Tensor, ia: int,
+                 ib: int) -> None:
+    """a and b are (L, ., .) with one lane count and a.shape[ia] ==
+    b.shape[ib] (the shared extent)."""
+    if (a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0]
+            or a.shape[ia] != b.shape[ib]):
+        raise ValueError(f"{name}: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}")
+
+
+def mx_matmul_lanes(a: torch.Tensor, b: torch.Tensor,
+                    fmt_a: Optional[ElementFormat],
+                    fmt_b: Optional[ElementFormat], block: int = MX_BLOCK,
+                    scale_mode: str = "floor") -> torch.Tensor:
+    """``C[l] = Q(a[l]) (M, K) @ Q(b[l]) (K, N)`` for a (L, M, K) and
+    b (L, K, N), blocks along K; fp32 accumulation, (L, M, N) in a.dtype.
+    One launch for all lanes, planned as one lane (``fwd_gemm_plan(M, N,
+    K)``), so lane l is bitwise ``mx_matmul(a[l], b[l])``.  M <= 8 raises
+    (the small-M kernel has no lane axis)."""
+    _check_lanes("mx_matmul_lanes", a, b, 2, 1)
+    L, M, K = a.shape
+    N = b.shape[2]
+    if M <= FWD_SMALL_M:
+        raise NotImplementedError(
+            f"mx_matmul_lanes: M = {M}: the small-M forward kernel has no "
+            "lane axis; lane GEMMs at so few rows come with ROADMAP Queue A "
+            "item 4 (MoE experts)")
+    if not a.is_cuda:
+        return ref.mx_matmul_lanes_ref(a, b, fmt_a, fmt_b, block, scale_mode)
+    is_fp32 = _check_gemm("mx_matmul_lanes", a, b, fmt_a, fmt_b, block,
+                          scale_mode)
+    a, b = a.contiguous(), b.contiguous()
+    c = torch.empty((L, M, N), dtype=a.dtype, device=a.device)
+    if c.numel() == 0 or K == 0:
+        return c.zero_()
+    _, depth, splits = fwd_gemm_plan(M, N, K)
+    aq = None if _in_place(a, fmt_a) else _bwd_scratch(L * M, depth,
+                                                       a.device)
+    bq = _bwd_scratch(L * N, depth, a.device)
+    work = _workspace(splits, M, N, a.device, L)
+    _launch("mx_matmul_lanes", "mx_matmul_lanes", a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), _ptr(work), _ptr(aq), _ptr(bq), L, M,
+            N, K, depth, splits, is_fp32, int(fmt_a is not None),
+            *_fmt_args(fmt_a, scale_mode), int(fmt_b is not None),
+            *_fmt_args(fmt_b, scale_mode))
+    return c
+
+
+def mx_matmul_dgrad_lanes(dy: torch.Tensor, w: torch.Tensor,
+                          fmt_g: Optional[ElementFormat],
+                          fmt_w: Optional[ElementFormat],
+                          block: int = MX_BLOCK,
+                          scale_mode: str = "floor") -> torch.Tensor:
+    """``dx[l] = Q(dy[l]) (M, N) @ Q(w[l])^T`` for dy (L, M, N) and w
+    (L, K, N), blocks along N; (L, M, K) in dy.dtype, planned as one lane
+    (``bwd_gemm_plan(M, K, N)``), so lane l is bitwise
+    ``mx_matmul_dgrad(dy[l], w[l])``."""
+    _check_lanes("mx_matmul_dgrad_lanes", dy, w, 2, 2)
+    if not dy.is_cuda:
+        return ref.mx_matmul_dgrad_lanes_ref(dy, w, fmt_g, fmt_w, block,
+                                             scale_mode)
+    is_fp32 = _check_gemm("mx_matmul_dgrad_lanes", dy, w, fmt_g, fmt_w,
+                          block, scale_mode)
+    L, M, N = dy.shape
+    K = w.shape[1]
+    dy, w = dy.contiguous(), w.contiguous()
+    dx = torch.empty((L, M, K), dtype=dy.dtype, device=dy.device)
+    if dx.numel() == 0 or N == 0:
+        return dx.zero_()
+    depth, splits = bwd_gemm_plan(M, K, N)
+    dyq = None if _in_place(dy, fmt_g) else _bwd_scratch(L * M, depth,
+                                                         dy.device)
+    wq = None if _in_place(w, fmt_w) else _bwd_scratch(L * K, depth,
+                                                       dy.device)
+    work = _workspace(splits, M, K, dy.device, L)
+    _launch("mx_matmul_dgrad_lanes", "mx_matmul_dgrad_lanes", dy.data_ptr(),
+            w.data_ptr(), dx.data_ptr(), _ptr(work), _ptr(dyq), _ptr(wq), L,
+            M, N, K, depth, splits, is_fp32, int(fmt_g is not None),
+            *_fmt_args(fmt_g, scale_mode), int(fmt_w is not None),
+            *_fmt_args(fmt_w, scale_mode))
+    return dx
+
+
+def mx_matmul_wgrad_lanes(x: torch.Tensor, dy: torch.Tensor,
+                          fmt_a: Optional[ElementFormat],
+                          fmt_g: Optional[ElementFormat],
+                          block: int = MX_BLOCK,
+                          scale_mode: str = "floor") -> torch.Tensor:
+    """``dW[l] = Q(x[l])^T @ Q(dy[l])`` for x (L, T, K) and dy (L, T, N),
+    blocks along each lane's T; (L, K, N) in x.dtype, planned as one lane
+    (``bwd_gemm_plan(K, N, T)``), so lane l is bitwise
+    ``mx_matmul_wgrad(x[l], dy[l])``."""
+    _check_lanes("mx_matmul_wgrad_lanes", x, dy, 1, 1)
+    if not x.is_cuda:
+        return ref.mx_matmul_wgrad_lanes_ref(x, dy, fmt_a, fmt_g, block,
+                                             scale_mode)
+    is_fp32 = _check_gemm("mx_matmul_wgrad_lanes", x, dy, fmt_a, fmt_g,
+                          block, scale_mode)
+    L, T, K = x.shape
+    N = dy.shape[2]
+    x, dy = x.contiguous(), dy.contiguous()
+    dw = torch.empty((L, K, N), dtype=x.dtype, device=x.device)
+    if dw.numel() == 0 or T == 0:
+        return dw.zero_()
+    depth, splits = bwd_gemm_plan(K, N, T)
+    xq = _bwd_scratch(L * K, depth, x.device)
+    dyq = _bwd_scratch(L * N, depth, x.device)
+    work = _workspace(splits, K, N, x.device, L)
+    _launch("mx_matmul_wgrad_lanes", "mx_matmul_wgrad_lanes", x.data_ptr(),
+            dy.data_ptr(), dw.data_ptr(), _ptr(work), xq.data_ptr(),
+            dyq.data_ptr(), L, T, K, N, depth, splits, is_fp32,
             int(fmt_a is not None), *_fmt_args(fmt_a, scale_mode),
             int(fmt_g is not None), *_fmt_args(fmt_g, scale_mode))
     return dw

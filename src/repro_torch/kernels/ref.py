@@ -27,7 +27,9 @@ from repro_torch.core.formats import ElementFormat
 from repro_torch.core.mx import MX_BLOCK, quantize_mx
 
 __all__ = ["mx_quantize_ref", "mx_matmul_ref", "mx_matmul_dgrad_ref",
-           "mx_matmul_wgrad_ref", "mx_flash_attention_ref",
+           "mx_matmul_wgrad_ref", "mx_matmul_lanes_ref",
+           "mx_matmul_dgrad_lanes_ref", "mx_matmul_wgrad_lanes_ref",
+           "mx_flash_attention_ref",
            "mx_flash_attention_bwd_ref", "mx_attention_decode_ref",
            "gather_pages", "mx_attention_decode_paged_ref", "attn_tile_mask", "attn_tile_needed", "attn_tiles", "fold_cache",
            "NEG_INF"]
@@ -76,6 +78,43 @@ def mx_matmul_wgrad_ref(x: torch.Tensor, dy: torch.Tensor,
     xq = quantize_mx(x, fmt_a, axis=0, block=block, scale_mode=scale_mode)
     dyq = quantize_mx(dy, fmt_g, axis=0, block=block, scale_mode=scale_mode)
     return torch.matmul(xq.float().T, dyq.float()).to(x.dtype)
+
+
+def _lanes(fn, a: torch.Tensor, b: torch.Tensor, out_shape, *args):
+    """fn over the lanes of a (L, ., .) and b (L, ., .), stacked."""
+    if a.shape[0] == 0:
+        return torch.empty((0,) + out_shape, dtype=a.dtype, device=a.device)
+    return torch.stack([fn(a[i], b[i], *args) for i in range(a.shape[0])])
+
+
+def mx_matmul_lanes_ref(a: torch.Tensor, b: torch.Tensor,
+                        fmt_a: Optional[ElementFormat],
+                        fmt_b: Optional[ElementFormat],
+                        block: int = MX_BLOCK,
+                        scale_mode: str = "floor") -> torch.Tensor:
+    """``mx_matmul_ref`` lane by lane: a (L, M, K), b (L, K, N)."""
+    return _lanes(mx_matmul_ref, a, b, (a.shape[1], b.shape[2]), fmt_a,
+                  fmt_b, block, scale_mode)
+
+
+def mx_matmul_dgrad_lanes_ref(dy: torch.Tensor, w: torch.Tensor,
+                              fmt_g: Optional[ElementFormat],
+                              fmt_w: Optional[ElementFormat],
+                              block: int = MX_BLOCK,
+                              scale_mode: str = "floor") -> torch.Tensor:
+    """``mx_matmul_dgrad_ref`` lane by lane: dy (L, M, N), w (L, K, N)."""
+    return _lanes(mx_matmul_dgrad_ref, dy, w, (dy.shape[1], w.shape[1]),
+                  fmt_g, fmt_w, block, scale_mode)
+
+
+def mx_matmul_wgrad_lanes_ref(x: torch.Tensor, dy: torch.Tensor,
+                              fmt_a: Optional[ElementFormat],
+                              fmt_g: Optional[ElementFormat],
+                              block: int = MX_BLOCK,
+                              scale_mode: str = "floor") -> torch.Tensor:
+    """``mx_matmul_wgrad_ref`` lane by lane: x (L, T, K), dy (L, T, N)."""
+    return _lanes(mx_matmul_wgrad_ref, x, dy, (x.shape[2], dy.shape[2]),
+                  fmt_a, fmt_g, block, scale_mode)
 
 
 def attn_tile_mask(spec: AttnSpec, qi: int, kj: int, tile_q: int,

@@ -9,8 +9,8 @@ intervention) on olmo-paper with the deterministic synthetic LM stream,
 on ``cuda`` unless ``--device cpu`` is given.  Checkpoints are the JAX
 reference's npz files, so ``python -m repro.launch.train --resume`` can
 continue a run written here, and the other way round.  Counterpart of
-``repro.launch.train``; ``--mesh``, ``--guard`` and the cross-pod
-compression belong to ROADMAP Queue A item 5.
+``repro.launch.train``; ``--guard`` belongs to ROADMAP Queue A item 2,
+``--mesh`` and the cross-pod compression to item 6.
 """
 from __future__ import annotations
 

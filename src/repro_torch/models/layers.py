@@ -67,10 +67,15 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
 
 def qdense(p, x: torch.Tensor, qcfg: QuantConfig) -> torch.Tensor:
     """MX-quantized dense layer; the weight is used in ``x.dtype`` (a bf16
-    weight, as the serve engine holds it, is used as it is)."""
-    y = mx_contract(x, p["w"].to(x.dtype), qcfg, kind="dense")
+    weight, as the serve engine holds it, is used as it is).  A weight
+    with a lane axis, (L, K, N) against x (L, T, K), takes the "bmm" kind:
+    each lane is the dense layer of its own weight."""
+    w = p["w"]
+    lanes = w.ndim == 3
+    y = mx_contract(x, w.to(x.dtype), qcfg, kind="bmm" if lanes else "dense")
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        b = p["b"].to(y.dtype)
+        y = y + (b.unsqueeze(-2) if lanes else b)
     return y
 
 
@@ -83,7 +88,10 @@ def norm_init(d: int, kind: str = "rmsnorm", device=None):
 
 def apply_norm(p, x: torch.Tensor, qcfg: QuantConfig, kind: str = "rmsnorm",
                eps: float = 1e-5) -> torch.Tensor:
-    """Norm in fp32 with MX-quantized affine parameters (paper §6.1)."""
+    """Norm in fp32 with MX-quantized affine parameters (paper §6.1).  An
+    affine with a lane axis, (L, d) against x (L, T, d), broadcasts over
+    each lane's rows; it is still quantized along its last axis, so each
+    lane's blocks are those a one-lane run quantizes."""
     xf = x.to(torch.float32)
     if kind == "layernorm":
         xf = xf - torch.mean(xf, dim=-1, keepdim=True)
@@ -95,9 +103,10 @@ def apply_norm(p, x: torch.Tensor, qcfg: QuantConfig, kind: str = "rmsnorm",
                                 scale_mode=qcfg.scale_mode)
         xn = ops.mx_quantize(xn, qcfg.ln_fmt, axis=-1, block=qcfg.block,
                              scale_mode=qcfg.scale_mode)
-    y = xn * scale
+    lane = (lambda t: t.unsqueeze(-2)) if scale.ndim > 1 else (lambda t: t)
+    y = xn * lane(scale)
     if "bias" in p:
-        y = y + p["bias"].to(torch.float32)
+        y = y + lane(p["bias"].to(torch.float32))
     return y.to(x.dtype)
 
 

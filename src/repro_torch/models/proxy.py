@@ -11,11 +11,18 @@ sees the same batches (the paper's §4.1 protocol); the law is the
 reference's, the bits are not.  The activations stay fp32 as in the
 reference, so the MX GEMM kernels run on fp32 operands (every proxy GEMM
 is quantized under the MX presets).
+
+Lanes (a sweep's pack of runs, the reference's ``vmap``): a tree whose
+leaves carry a leading lane axis (``stack_lanes``) goes through
+``proxy_apply`` and ``proxy_loss`` unchanged: its weights (L, K, N) take
+the "bmm" kind (one lane kernel launch per GEMM, whatever L is), its
+layernorm affines (L, d) broadcast over each lane's rows, and the loss is
+one value per lane.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +33,7 @@ from .layers import apply_norm, dense_init, norm_init, qdense
 from .transformer import tree_map
 
 __all__ = ["ProxyConfig", "proxy_init", "teacher_init", "proxy_apply",
-           "proxy_batch", "proxy_loss"]
+           "proxy_batch", "proxy_loss", "stack_lanes", "unstack_lanes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,23 +98,68 @@ def proxy_apply(params, x: torch.Tensor, cfg: ProxyConfig,
     return a
 
 
-def proxy_batch(step: int, teacher_params, cfg: ProxyConfig, seed: int = 0
+def proxy_batch(step: int, teacher_params, cfg: ProxyConfig,
+                seed: Union[int, Sequence[int]] = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Step-indexed batch (x, y) on the teacher's device: the same data
-    order for every re-run."""
-    device = teacher_params["layers"][0]["w1"]["w"].device
-    g = torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
-    x = torch.randn((cfg.batch_size, cfg.d_model), generator=g,
-                    device=device)
+    order for every re-run.  With a lane-stacked teacher, ``seed`` holds
+    one seed a lane and each lane's batch is drawn as a one-lane run
+    draws it: x and the label noise from the lane's own generator, y from
+    the lane's teacher on its own x.  Those are the only launches of a
+    pack's step that grow with the lane count; a batched teacher product
+    would give other bits at another lane count (cuBLAS picks its split
+    of the contraction by the batch's size)."""
+    w = teacher_params["layers"][0]["w1"]["w"]
+    device = w.device
+    seeds = [seed] if w.ndim == 2 else list(seed)
+    gens = [torch.Generator(device=device).manual_seed(s * 1_000_003 + step)
+            for s in seeds]
+    shape = (cfg.batch_size, cfg.d_model)
+    xs = [torch.randn(shape, generator=g, device=device) for g in gens]
+    fp32 = QuantConfig.bf16().to_fp32()
     with torch.no_grad():
-        y = proxy_apply(teacher_params, x, cfg, QuantConfig.bf16().to_fp32())
-        y = y + cfg.label_noise * torch.randn(y.shape, generator=g,
-                                              device=device)
+        if w.ndim == 2:
+            x = xs[0]
+            y = proxy_apply(teacher_params, x, cfg, fp32)
+        else:
+            x = torch.stack(xs)
+            y = torch.stack([proxy_apply(t, xl, cfg, fp32) for t, xl in
+                             zip(unstack_lanes(teacher_params), xs)])
+        noise = [torch.randn(shape, generator=g, device=device)
+                 for g in gens]
+        y = y + cfg.label_noise * (noise[0] if w.ndim == 2
+                                   else torch.stack(noise))
     return x, y
 
 
 def proxy_loss(params, batch, cfg: ProxyConfig, qcfg: QuantConfig):
+    """Mean squared error: a 0-d loss, or (L,) for lane-stacked params and
+    batch (each lane's mean over its own batch)."""
     x, y = batch
     pred = proxy_apply(params, x, cfg, qcfg)
-    loss = torch.mean(torch.square(pred - y))
+    sq = torch.square(pred - y)
+    loss = torch.mean(sq) if x.ndim == 2 else torch.mean(
+        sq.reshape(sq.shape[0], -1), dim=1)
     return loss, {"loss": loss}
+
+
+def stack_lanes(trees: Sequence) -> dict:
+    """One tree whose leaves stack the trees' leaves along a new lane axis
+    0 (the trees share one structure)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: stack_lanes([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [stack_lanes([t[i] for t in trees]) for i in range(len(first))]
+    return torch.stack(list(trees))
+
+
+def unstack_lanes(tree, n: Optional[int] = None) -> List:
+    """The inverse of :func:`stack_lanes`: one tree per lane (views)."""
+    if n is None:
+        leaf = tree
+        while isinstance(leaf, (dict, list, tuple)):
+            leaf = (next(iter(leaf.values())) if isinstance(leaf, dict)
+                    else leaf[0])
+        n = leaf.shape[0]
+    return [tree_map(lambda t, i=i: t[i], tree) for i in range(n)]

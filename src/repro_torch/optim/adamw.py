@@ -8,6 +8,12 @@ MX quantization touches only GEMM operands, except for two options:
   * ``moment_fmt``: the Adam moments are MX quantize-dequantized along
     their last axis after each update (the quantize kernel on CUDA).
 
+Lanes (a sweep's pack of runs, the reference's ``vmap`` of the update):
+with ``lanes=True`` every leaf carries a leading lane axis, ``lr`` is a
+float or one value a lane, (L,), and the global norm and its clipping are
+per lane, so ``grad_norm`` is (L,).  A one-lane call gives the unbatched
+update's bits; with more lanes a lane's norm may sum in another order.
+
 Trees are nested dicts/lists of tensors.  Unlike the reference, which
 returns new trees, the updates run in place under ``torch.no_grad()``
 (the parameters and the state are overwritten, and the same objects are
@@ -57,22 +63,35 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, lanes: bool = False) -> torch.Tensor:
     """sqrt of the sum over leaves (in order) of each leaf's fp32 sum of
-    squares, a 0-d tensor on the leaves' device."""
+    squares, a 0-d tensor on the leaves' device; with ``lanes`` one norm a
+    lane, (L,)."""
     total = None
     for x in _leaves(tree):
-        s = torch.sum(torch.square(x.to(torch.float32)))
+        sq = torch.square(x.to(torch.float32))
+        s = (torch.sum(sq.reshape(sq.shape[0], -1), dim=1) if lanes
+             else torch.sum(sq))
         total = s if total is None else total + s
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    """(tree scaled by min(1, max_norm / max(norm, 1e-12)), norm)."""
-    gn = global_norm(tree)
+def _per_lane(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(L,) values shaped to broadcast over a (L, ...) leaf."""
+    return v.reshape(v.shape + (1,) * (x.ndim - v.ndim))
+
+
+def clip_by_global_norm(tree, max_norm: float, lanes: bool = False):
+    """(tree scaled by min(1, max_norm / max(norm, 1e-12)), norm); with
+    ``lanes`` each lane by its own norm."""
+    gn = global_norm(tree, lanes)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    return _map(lambda x: (x.to(torch.float32) * scale).to(x.dtype),
-                tree), gn
+    return _map(lambda x: (x.to(torch.float32) * _per_lane(scale, x)
+                           ).to(x.dtype), tree), gn
+
+
+def _lr(lr, device) -> torch.Tensor:
+    return torch.as_tensor(lr, dtype=torch.float32).to(device)
 
 
 def _mxq_moment(x: torch.Tensor, fmt) -> torch.Tensor:
@@ -95,19 +114,21 @@ def adamw_init(params, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, lr, cfg: AdamWConfig):
-    """One AdamW step in place.  ``lr`` is a float or a 0-d tensor.
-    Returns (params, state, {"grad_norm": 0-d tensor})."""
+def adamw_update(grads, state, params, lr, cfg: AdamWConfig,
+                 lanes: bool = False):
+    """One AdamW step in place.  ``lr`` is a float or a 0-d tensor (with
+    ``lanes`` also (L,)).  Returns (params, state, {"grad_norm": 0-d
+    tensor, or (L,) with ``lanes``})."""
     grads = _map(lambda g: g.to(torch.float32), grads)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, lanes)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, lanes)
     state["count"].add_(1)
     count = state["count"].to(torch.float32)
     b1c = 1.0 - cfg.b1 ** count
     b2c = 1.0 - cfg.b2 ** count
-    lr = torch.as_tensor(lr, dtype=torch.float32).to(count.device)
+    lr = _lr(lr, count.device)
     ref = state.get("master", params)
     for p, r, m, v, g in zip(_leaves(params), _leaves(ref),
                              _leaves(state["m"]), _leaves(state["v"]),
@@ -117,7 +138,8 @@ def adamw_update(grads, state, params, lr, cfg: AdamWConfig):
                             cfg.moment_fmt))
         step = m / b1c / (torch.sqrt(v / b2c) + cfg.eps)
         rf = r.to(torch.float32)
-        new = rf - lr * (step + cfg.weight_decay * rf)
+        lr_p = _per_lane(lr, rf) if lanes else lr
+        new = rf - lr_p * (step + cfg.weight_decay * rf)
         if r is not p:
             r.copy_(new)
         p.copy_(new.to(p.dtype))
@@ -134,16 +156,18 @@ def sgd_init(params, momentum: float = 0.9):
 
 @torch.no_grad()
 def sgd_update(grads, state, params, lr, momentum: float = 0.9,
-               grad_clip: float = 1.0):
-    """SGD with momentum, in place; returns (params, state, metrics)."""
+               grad_clip: float = 1.0, lanes: bool = False):
+    """SGD with momentum, in place; returns (params, state, metrics).
+    ``lanes`` as in :func:`adamw_update`."""
     grads = _map(lambda g: g.to(torch.float32), grads)
     if grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, lanes)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, lanes)
     for p, m, g in zip(_leaves(params), _leaves(state["mom"]),
                        _leaves(grads)):
         m.copy_(momentum * m + g)
-        p.copy_((p.to(torch.float32) - lr * m).to(p.dtype))
+        lr_p = _per_lane(_lr(lr, p.device), p) if lanes else lr
+        p.copy_((p.to(torch.float32) - lr_p * m).to(p.dtype))
     state["count"].add_(1)
     return params, state, {"grad_norm": gnorm}

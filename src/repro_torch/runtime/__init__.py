@@ -1,13 +1,14 @@
 """Run-time bookkeeping of the port (see ``repro.runtime``): the event
-journal, checkpoint meta, segment numbering, the metric window and the
-memory ledger.  ``SegmentFn``'s jit trace accounting has no counterpart:
-PyTorch runs eagerly and compiles nothing per qcfg."""
-from .journal import (Journal, RestoredMeta, checkpoint_meta,
+journal and its JSONL sink, checkpoint meta, segment planning and
+numbering, the metric window and the memory ledger.  ``SegmentFn``'s jit
+trace accounting has no counterpart: PyTorch runs eagerly and compiles
+nothing per qcfg."""
+from .journal import (Journal, JsonlSink, RestoredMeta, checkpoint_meta,
                       parse_checkpoint_meta, read_jsonl)
 from .memory import MemoryBudgetError, MemoryLedger, tree_bytes
-from .segments import MetricsWindow, SegmentTracker
+from .segments import MetricsWindow, Segment, SegmentTracker, plan_segments
 
-__all__ = ["Journal", "read_jsonl",
+__all__ = ["Journal", "JsonlSink", "read_jsonl", "Segment", "plan_segments",
            "checkpoint_meta", "parse_checkpoint_meta", "RestoredMeta",
            "MemoryLedger", "MemoryBudgetError", "tree_bytes",
            "MetricsWindow", "SegmentTracker"]

@@ -2,11 +2,12 @@
 
 Counterpart of ``repro.runtime.journal``: a :class:`Journal` is a ``list``
 of ``{"event": kind, ...}`` records, validated on append, with a JSONL
-round trip; :func:`checkpoint_meta` builds the meta the Trainer persists
+round trip; :class:`JsonlSink` is the append + fsync writer of the sweep's
+RunDB; :func:`checkpoint_meta` builds the meta the Trainer persists
 (qcfg, recoveries, segment index) and :func:`parse_checkpoint_meta`
 inverts it.  The meta is the reference's JSON, so a checkpoint's meta
 reads the same in either package (a reference meta's guard state is
-ignored: the autopilot is not ported).
+ignored: the Trainer's online guard is ROADMAP Queue A item 2).
 """
 from __future__ import annotations
 
@@ -14,8 +15,41 @@ import json
 import os
 from typing import Any, Iterable, Iterator, NamedTuple, Optional
 
-__all__ = ["Journal", "read_jsonl", "checkpoint_meta",
+__all__ = ["Journal", "JsonlSink", "read_jsonl", "checkpoint_meta",
            "parse_checkpoint_meta", "RestoredMeta"]
+
+
+class JsonlSink:
+    """Append-only JSONL writer: one ``json.dumps`` line per record, flushed
+    and fsync'd, so a crash loses at most the record in flight (the
+    RunDB's durability contract)."""
+
+    def __init__(self, path: str, fsync: bool = True):
+        self.path = path
+        self._fsync = fsync
+        self._fh = None
+
+    def write(self, obj: Any) -> None:
+        if self._fh is None:
+            os.makedirs(os.path.dirname(os.path.abspath(self.path)),
+                        exist_ok=True)
+            self._fh = open(self.path, "a")
+        self._fh.write(json.dumps(obj) + "\n")
+        self._fh.flush()
+        if self._fsync:
+            os.fsync(self._fh.fileno())
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
 
 def read_jsonl(path: str) -> Iterator[dict]:
     with open(path) as f:

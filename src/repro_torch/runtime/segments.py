@@ -1,18 +1,61 @@
-"""Segment numbering of a live run and the deferred metric window.
+"""Segment planning and numbering, and the deferred metric window.
 
-Counterpart of ``SegmentTracker`` and ``MetricsWindow`` in
-``repro.runtime.segments``.  ``SegmentFn`` (jit with per-static-key trace
-accounting) and ``plan_segments`` are not ported: an eager PyTorch step
-has no trace to count.
+Counterpart of ``plan_segments``, ``SegmentTracker`` and ``MetricsWindow``
+in ``repro.runtime.segments``.  ``SegmentFn`` (jit with per-static-key
+trace accounting) is not ported: an eager PyTorch step has no trace to
+count, and a segment's qcfg is simply the one its steps are called with.
 """
 from __future__ import annotations
 
 import time
-from typing import List
+from typing import Any, List, NamedTuple, Sequence, Tuple
 
 import torch
 
-__all__ = ["SegmentTracker", "MetricsWindow"]
+__all__ = ["Segment", "plan_segments", "SegmentTracker", "MetricsWindow"]
+
+
+class Segment(NamedTuple):
+    start: int
+    end: int
+    qcfg: Any
+
+
+def plan_segments(steps: int, qcfg0, phases: Sequence[Tuple[int, str]] = (),
+                  guard: Any = None) -> List[Segment]:
+    """Compile an intervention schedule into contiguous step segments.
+
+    ``phases``: ``((switch_step, intervention_name), ...)`` applied
+    cumulatively (the paper's Fig. 7 protocol).  ``guard``: a policy
+    name/spec/instance; a *scheduled* policy's entries merge into the same
+    split (string entries apply cumulatively like phases, integer entries
+    jump to an absolute ladder level of the base scheme); online policies
+    contribute nothing here.  Switches are clipped to [0, steps];
+    coincident switches apply in (step, str(what)) order, so the plan is
+    deterministic.  The reference's planner, step for step."""
+    from repro_torch.core import apply_intervention
+    switches: List[Tuple[int, Any]] = [(int(s), iv) for s, iv in phases]
+    ctl = None
+    if guard:
+        from repro_torch.guard import PrecisionController, get_policy
+        pol = get_policy(guard)
+        if pol.is_scheduled:
+            ctl = PrecisionController(qcfg0, pol)
+            switches += [(int(s), w) for s, w in pol.schedule]
+    segs: List[Segment] = []
+    qcfg, prev = qcfg0, 0
+    for step, what in sorted(switches, key=lambda x: (x[0], str(x[1]))):
+        step = min(max(int(step), 0), int(steps))
+        if step > prev:
+            segs.append(Segment(prev, step, qcfg))
+            prev = step
+        if isinstance(what, str):
+            qcfg = apply_intervention(qcfg, what)
+        else:
+            qcfg = ctl.qcfg_at_level(what)
+    if prev < steps:
+        segs.append(Segment(prev, int(steps), qcfg))
+    return segs or [Segment(0, int(steps), qcfg0)]
 
 
 class SegmentTracker:

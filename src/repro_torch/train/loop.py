@@ -22,8 +22,9 @@ The step runs eagerly: the forward, ``torch.autograd.grad`` through the
 ``mx_contract`` Functions (the MX GEMM, flash and quantize kernels on
 CUDA) and an in-place AdamW update.  With a ``ckpt_layout`` (see
 ``repro_torch.convert.lm_checkpoint_layout``) checkpoints are the
-reference's files.  Meshes, the cross-pod gradient compression and the
-precision autopilot (``guard``) are ROADMAP Queue A item 5 and raise.
+reference's files.  The precision autopilot (``guard``) is ROADMAP Queue
+A item 2; meshes and the cross-pod gradient compression are item 6; both
+raise.
 """
 from __future__ import annotations
 
@@ -43,8 +44,9 @@ from repro_torch.runtime import (Journal, MemoryLedger, MetricsWindow,
 
 __all__ = ["TrainerConfig", "Trainer", "make_train_step"]
 
-_LATER = ("is ROADMAP Queue A item 5 (guard, runtime, sweeps and "
-          "distribution), not ported yet")
+_GUARD_LATER = ("is ROADMAP Queue A item 2 (the Trainer's online guard), "
+                "not ported yet")
+_MESH_LATER = "is ROADMAP Queue A item 6 (distribution), not ported yet"
 
 
 @dataclasses.dataclass
@@ -118,7 +120,7 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     reference's order."""
     if mesh is not None or tcfg.pod_compression:
         raise NotImplementedError(f"sharded training (mesh, "
-                                  f"pod_compression) {_LATER}")
+                                  f"pod_compression) {_MESH_LATER}")
     accum = max(1, tcfg.grad_accum)
 
     def value_and_grad(params, batch, qcfg):
@@ -180,7 +182,7 @@ class Trainer:
         self.opt_cfg = opt_cfg or AdamWConfig()
         if self.tcfg.guard is not None:
             raise NotImplementedError(f"the precision autopilot (guard) "
-                                      f"{_LATER}")
+                                      f"{_GUARD_LATER}")
         self.loss_fn = loss_fn
         self.batch_fn = batch_fn
         self.qcfg = qcfg

@@ -305,3 +305,181 @@ def test_bwd_gemm_kernels_match_plain_versions_on_card():
             qb = ref.mx_quantize_ref(b, fb, axis=0).float().abs()
             n = a.shape[0]
         assert cs.gemm_check(got, plain(a, b, fa, fb), qa, qb, n)[0], kind
+
+
+# ---------------------------------------------------------------------------
+# The lane GEMMs: kernels 2-4 with a lane axis (one launch for L lanes).
+# ---------------------------------------------------------------------------
+LANE_WRAPPERS = {"fwd": ("mx_matmul_lanes", "mx_matmul"),
+                 "dgrad": ("mx_matmul_dgrad_lanes", "mx_matmul_dgrad"),
+                 "wgrad": ("mx_matmul_wgrad_lanes", "mx_matmul_wgrad")}
+
+
+class _OnCard:
+    """A CPU tensor that tells a wrapper it lies on the card, so that the
+    wrapper's CUDA branch (checks, plan, scratch, the launch's arguments)
+    runs with ``ops._launch`` recorded instead of launched."""
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+        self.is_cuda = True
+        self.shape, self.ndim, self.dtype = t.shape, t.ndim, t.dtype
+        self.device = t.device
+
+    def contiguous(self):
+        return self
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+    def __getitem__(self, i):
+        return _OnCard(self.t[i])
+
+    def reshape(self, *shape):
+        return _OnCard(self.t.reshape(*shape))
+
+
+def _recorded_launch(monkeypatch):
+    calls = []
+    monkeypatch.setattr(ops, "_launch",
+                        lambda counter, name, *args: calls.append(
+                            (counter, name, args)))
+    return calls
+
+
+def _lane_shapes(kind, L, M=256, K=256, N=1024):
+    """(L, ., .) operand shapes of ``kind``: forward x (M, K) @ W (K, N),
+    dgrad dy (M, N) against W (K, N), wgrad x (M, K) against dy (M, N)."""
+    return {"fwd": ((L, M, K), (L, K, N)), "dgrad": ((L, M, N), (L, K, N)),
+            "wgrad": ((L, M, K), (L, M, N))}[kind]
+
+
+@pytest.mark.parametrize("kind", sorted(LANE_WRAPPERS))
+def test_lane_wrappers_pass_their_c_signature(kind, monkeypatch):
+    """Each lane wrapper passes its C entry point as many arguments as the
+    ctypes signature holds (the stream is appended by ``_launch``); the
+    signature itself is held against the C source in
+    test_torch_scale_modes.py."""
+    calls = _recorded_launch(monkeypatch)
+    name = LANE_WRAPPERS[kind][0]
+    sa, sb = _lane_shapes(kind, 3)
+    f = core.get_format("e4m3")
+    getattr(ops, name)(_OnCard(torch.empty(sa)), _OnCard(torch.empty(sb)),
+                       f, f, scale_mode="adaptive")
+    (counter, entry, args), = calls
+    assert counter == entry == name
+    assert len(args) + 1 == len(ops._SIGNATURES[name][1])
+    assert args[6] == 3    # the lane count follows the six pointers
+    assert args[-1] == ops.SCALE_MODES["adaptive"]
+
+
+@pytest.mark.parametrize("L", [1, 3, 8])
+@pytest.mark.parametrize("M", [256, 2048])
+@pytest.mark.parametrize("kind", sorted(LANE_WRAPPERS))
+def test_lane_plans_are_the_one_lane_plans(kind, M, L, monkeypatch):
+    """A lane launch's depth and splits are those the 2-D wrapper launches
+    on one lane's operands, whatever the lane count: the plan does not
+    depend on who shares the call (the shapes split where a plan folding
+    L into the tiles would not)."""
+    calls = _recorded_launch(monkeypatch)
+    lane, flat = (getattr(ops, n) for n in LANE_WRAPPERS[kind])
+    sa, sb = _lane_shapes(kind, L, M=M)
+    a, b = _OnCard(torch.empty(sa)), _OnCard(torch.empty(sb))
+    f = core.get_format("e4m3")
+    lane(a, b, f, f)
+    flat(a[0], b[0], f, f)
+    (_, _, la), (_, _, fa) = calls
+    # lane: pointers, L, M, N, K, depth, splits; 2-D: pointers, M, N, K,
+    # depth, splits (the forward then takes its small-M flag)
+    assert la[7:12] == fa[6:11]
+    assert la[12:] == (fa[12:] if kind == "fwd" else fa[11:])
+
+
+def test_lane_plans_split_where_a_folded_plan_would_not():
+    """At the proxy's width (batch 2048, 512 -> 2048) the one-lane plan of
+    the dgrad and wgrad splits the contraction 4 ways; with 8 lanes folded
+    into the tiles it would not split: the planted plan fault of the card
+    check changes the order of the sums there."""
+    assert ops.bwd_gemm_plan(2048, 512, 2048) == (2048, 4)    # dgrad
+    assert ops.bwd_gemm_plan(512, 2048, 2048) == (2048, 4)    # wgrad
+    assert ops.bwd_gemm_plan(8 * 2048, 512, 2048) == (2048, 1)
+    assert ops.bwd_gemm_plan(8 * 512, 2048, 2048) == (2048, 1)
+
+
+@pytest.mark.parametrize("name", ["e4m3", "e2m1"])
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("kind", sorted(LANE_WRAPPERS))
+def test_plain_lane_versions_are_their_per_lane_plain_versions(kind, dtype,
+                                                               name):
+    g = torch.Generator().manual_seed(3)
+    sa, sb = _lane_shapes(kind, 3, M=40, K=70, N=48)
+    a = torch.randn(sa, generator=g).to(DTYPES[dtype][0])
+    b = (torch.randn(sb, generator=g) / 8).to(DTYPES[dtype][0])
+    f = core.get_format(name)
+    lane, flat = (getattr(ops, n) for n in LANE_WRAPPERS[kind])
+    ops.reset_launches()
+    got = lane(a, b, f, f, scale_mode="bump")
+    want = torch.stack([flat(a[i], b[i], f, f, scale_mode="bump")
+                        for i in range(3)])
+    assert got.dtype == a.dtype and torch.equal(got, want)
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("M", [1, 8])
+def test_forward_lane_call_at_small_m_raises(M):
+    f = core.get_format("e4m3")
+    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        ops.mx_matmul_lanes(torch.randn(2, M, 64), torch.randn(2, 64, 32),
+                            f, f)
+    # the backward lane GEMMs run the wgmma path at any row count
+    assert ops.mx_matmul_dgrad_lanes(torch.randn(2, M, 32),
+                                     torch.randn(2, 64, 32), f, f).shape \
+        == (2, M, 64)
+
+
+@pytest.mark.parametrize("kind", ["dgrad", "wgrad"])
+def test_card_lane_checks_reject_the_planted_lane_faults(kind):
+    """chip_smoke's LANE_FAULTS on CPU tensors: a lane reading its
+    neighbour's weight fails gemm_check and the bitwise check; the folded
+    plan, in the split emulation, gives other bits than the one-lane plan,
+    whose lanes are each the 2-D emulation's bits."""
+    cs = _chip_smoke()
+    f = core.get_format("e4m3")
+    g = torch.Generator().manual_seed(5)
+    L, (B, d, h) = 2, (1024, 512, 2048)
+    a, b = cs.lane_operands(kind, B, d, h, f, g, lanes=L)
+    fn, fn2, plain, axes = cs.lane_fns(kind)
+    two = torch.stack([fn2(a[i], b[i], f, f) for i in range(L)])
+    qa = core.quantize_mx(a, f, axis=axes[0])
+    qb = core.quantize_mx(b, f, axis=axes[1])
+    ma, mb = cs.lane_product(kind, qa.abs(), qb.abs())
+    want = plain(a, b, f, f)
+    assert cs.gemm_check(two, want, ma, mb, ma.shape[-1])[0]
+    bad = cs.planted_lanes(kind, a, b, f, "floor", cs.LANE_FAULTS[0])
+    assert not torch.equal(bad, two)
+    assert not cs.gemm_check(bad, want, ma, mb, ma.shape[-1])[0]
+    assert cs.lane_splits(kind, a, b) > cs.lane_splits(
+        kind, a, b, cs.folded_plan(L)) >= 1
+    lanes = cs.planted_lanes(kind, a, b, f, "floor")
+    per_lane = torch.cat([cs.split_product(kind, a[i:i + 1], b[i:i + 1], f)
+                          for i in range(L)])
+    assert torch.equal(lanes, per_lane)
+    folded = cs.planted_lanes(kind, a, b, f, "floor", cs.LANE_FAULTS[1])
+    assert not torch.equal(folded, lanes)
+    assert cs.gemm_check(folded, want, ma, mb, ma.shape[-1])[0]
+
+
+@pytest.mark.gpu
+def test_lane_kernels_match_the_2d_kernels_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode "
+                    "(run chip_smoke.py on the card)")
+    cs = _chip_smoke()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for name in ("e4m3", "e2m1"):
+        f = core.get_format(name)
+        for kind in sorted(LANE_WRAPPERS):
+            a, b = cs.lane_operands(kind, 300, 100, 200, f, g, lanes=3)
+            for mode in ("floor", "adaptive"):
+                c = cs.lane_case(kind, a, b, f, mode)
+                assert c["bitwise_2d"] and c["replay"] and c["worst"] <= 1

@@ -40,8 +40,9 @@ def _is_forbidden(name: str) -> bool:
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    assert {PORT / "serve" / "pages.py", PORT / "serve" / "decode.py"} \
-        <= set(files)
+    assert {PORT / "serve" / "pages.py", PORT / "serve" / "decode.py",
+            PORT / "sweep" / "executor.py", PORT / "guard" / "policy.py",
+            PORT / "launch" / "sweep.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _is_forbidden(m)]
     assert not bad, bad
@@ -51,7 +52,8 @@ def test_port_imports_in_a_process_without_jax():
     code = ("import sys, repro_torch, repro_torch.serve, repro_torch.convert,"
             " repro_torch.configs, repro_torch.train, repro_torch.optim, "
             "repro_torch.launch.train, repro_torch.serve.pages, "
-            "repro_torch.serve.decode; "
+            "repro_torch.serve.decode, repro_torch.sweep, repro_torch.guard, "
+            "repro_torch.launch.sweep; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from repro import core as jcore
+from repro.kernels import ref as jref
 from repro_torch import core
 from repro_torch.kernels import ops, ref
 
@@ -148,6 +149,47 @@ def test_plain_matmul_matches_reference_under_each_rule(name, mode):
     e = np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
     tol = np.exp2(e - 7) + 200 * 2.0 ** -24 * terms
     assert np.all(np.abs(got.float().numpy() - want) <= tol)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("name", ["e3m2", "e2m3", "e2m1"])
+@pytest.mark.parametrize("kind", ["dgrad", "wgrad"])
+def test_plain_dgrad_wgrad_match_reference_in_low_bit_formats(kind, name,
+                                                              mode):
+    """The proxy's fp32 dgrad and wgrad (the path every sweep preset trains
+    through) in MXFP6 and MXFP4 at a ragged contraction (100: a partial
+    last block), against the reference's oracle (floor) or its quantize_mx
+    under the rule and a matmul; one bf16 ulp plus the fp32 sum bound."""
+    rng = np.random.default_rng(7 + FORMATS.index(name))
+    n = 100
+    if kind == "dgrad":   # dy (6, n) @ w (40, n)^T, blocks along n
+        a = (rng.standard_normal((6, n)) * 1e-2).astype(np.float32)
+        b = (rng.standard_normal((40, n)) / 10).astype(np.float32)
+        a[:, 32:64] *= 0.019 / np.abs(a[:, 32:64]).max(1, keepdims=True)
+        axes = (-1, 1)
+    else:                 # x (n, 6)^T @ dy (n, 40), blocks along n
+        a = rng.standard_normal((n, 6)).astype(np.float32)
+        b = (rng.standard_normal((n, 40)) * 1e-2).astype(np.float32)
+        a[32:64] *= 1.9 / np.abs(a[32:64]).max(0, keepdims=True)
+        axes = (0, 0)
+    f, jf = core.get_format(name), jcore.get_format(name)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    fn = ops.mx_matmul_dgrad if kind == "dgrad" else ops.mx_matmul_wgrad
+    got = fn(ta, tb, f, f, scale_mode=mode)
+    qa = jcore.quantize_mx(ja, jf, axis=axes[0], scale_mode=mode)
+    qb = jcore.quantize_mx(jb, jf, axis=axes[1], scale_mode=mode)
+    pair = (qa, qb.T) if kind == "dgrad" else (qa.T, qb)
+    if mode == "floor":
+        oracle = (jref.mx_matmul_dgrad_ref if kind == "dgrad"
+                  else jref.mx_matmul_wgrad_ref)
+        want = np.asarray(oracle(ja, jb, jf, jf))
+    else:
+        want = np.asarray(jnp.matmul(*pair))
+    terms = np.abs(np.asarray(pair[0])) @ np.abs(np.asarray(pair[1]))
+    tol = np.abs(want) * 2.0 ** -23 + n * 2.0 ** -24 * terms
+    assert got.dtype == torch.float32
+    assert np.all(np.abs(got.numpy() - want) <= tol)
 
 
 @pytest.mark.parametrize("mode", MODES)
