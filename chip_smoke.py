@@ -76,6 +76,24 @@ Phases, each of which raises on failure:
                 ``bump_exponent`` (the paper's Fig. 7 scale bump) the run
                 continues under the "bump" rule, its kernels still
                 launching.
+     guard    — the precision autopilot at olmo-paper's full width (8 x
+                512, ``mxfp8_e4m3``) under the reference's instability
+                injector: the fixed scheme exhausts its 2 recoveries; the
+                trend policy (a probe every 5 steps) escalates before the
+                watchdog, de-escalates and finishes 80 steps; the
+                journaled schedule replays it bitwise; launches per step
+                match each rung ([train]'s counts; a probe step adds one
+                flash forward and one flash dgrad a layer); a checkpoint
+                mid-escalation resumes the controller and trains on
+                bitwise; the journal survives JSONL.  Times a ζ-probe
+                step, the monitors' overhead with the probe off (<= 0.5)
+                and the de-escalated step against the pre-escalation one
+                (<= 2.0), the reference's gates.
+     snapshot — ``snapshot_to_serve`` from the guard's trainer into a
+                ServeEngine and a PagedServeEngine: greedy tokens bitwise
+                those of engines built from a checkpoint round trip, and
+                unchanged after 3 more training steps; snapshot ms and
+                peak memory printed.
   8. proxy    — the paper's student-teacher proxy at full width trains 20
                 steps under ``mxfp8_e4m3``.
   9. sweep    — the fig6 preset at its full budget (5 schemes x 8 seeds,
@@ -2685,6 +2703,465 @@ def phase_recovery(params, cfg):
     return outs
 
 
+# [guard]: the Trainer's online guard at full width.
+GUARD_PRESET = "mxfp8_e4m3"
+GUARD_STEPS = 80
+PROBE_REL = 1e-4    # ζ: the Trainer's probe against this phase's
+PROBE_ABS = 1e-4    # cosine: same gradients, other fp32 sum order
+
+
+def _guard_trainer(params, cfg, guard, *, probe=5, inject=True,
+                   ckpt_dir=None, ckpt_every=200, spike_factor=8.0,
+                   snaps=None, dev="cuda"):
+    """olmo-paper full at [train]'s batch (8 x 512) under GUARD_PRESET,
+    with the port's copy of the reference's instability injector (the
+    loss amplified 1.6x a step on steps 20-39 while activations are
+    quantized), no auto intervention and 2 recoveries at most, as the
+    reference's autopilot scenario.  ``snaps`` collects (step, launch
+    counts) as each step starts."""
+    from repro_torch.convert import lm_checkpoint_layout
+    from repro_torch.core import preset
+    from repro_torch.data import lm_batch
+    from repro_torch.guard.scenario import inject_instability
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_loss
+    from repro_torch.train import Trainer, TrainerConfig
+
+    def base(p, b, q):
+        return lm_loss(p, {"tokens": b["tokens"], "labels": b["labels"]},
+                       cfg, q)
+
+    def batch_fn(s):
+        if snaps is not None:
+            snaps.append((s, dict(ops.LAUNCHES)))
+        b = lm_batch(s, cfg.vocab, 8, 512, SEED, device=dev)
+        b["step"] = s
+        return b
+    tcfg = TrainerConfig(total_steps=GUARD_STEPS, peak_lr=1e-3, log_every=1,
+                         spike_factor=spike_factor, auto_intervention=None,
+                         max_recoveries=2, guard=guard,
+                         guard_probe_every=probe, ckpt_dir=ckpt_dir,
+                         ckpt_every=ckpt_every)
+    return Trainer(inject_instability(base) if inject else base,
+                   _fresh(params, dev), preset(GUARD_PRESET), batch_fn,
+                   tcfg=tcfg, ckpt_layout=lm_checkpoint_layout(cfg, dev))
+
+
+def _step_launches(snaps, final):
+    """{step: {kernel: launches in that step}} from the counts at each
+    step's start and after the last one."""
+    seq = list(snaps) + [(None, final)]
+    return {s: {k: b[k] - a[k] for k in b}
+            for (s, a), (_, b) in zip(seq, seq[1:])}
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _paired_ms(tr_a, tr_b, dev, rounds: int = 6, block: int = 6):
+    """Median ms/step of two trainers in alternating blocks, so drift hits
+    both alike (benchmarks/guard_autopilot.py's _paired_us)."""
+    tr_a.run(3)
+    tr_b.run(3)
+    ta, tb = [], []
+    for _ in range(rounds):
+        for tr, out in ((tr_a, ta), (tr_b, tb)):
+            _sync(dev)
+            t0 = time.perf_counter()
+            tr.run(block)
+            _sync(dev)
+            out.append((time.perf_counter() - t0) / block * 1e3)
+    return _median(ta), _median(tb)
+
+
+def _guard_probe_check(params, cfg, dev):
+    """The Trainer's ζ and cosine on probe step 0 against :func:`zeta_bound`
+    of MX and fp32 gradients taken here, on the same weights and batch
+    (and against the same pair in fp64).  The Trainer's probe reads both
+    gradients in the reference's stacked layout and this check reads
+    them per layer, so only the fp32 sums' order differs: held to
+    PROBE_REL relative (ζ) and PROBE_ABS absolute (cosine)."""
+    import torch
+    from repro_torch.core import zeta_bound
+    from repro_torch.core.diagnostics import tree_leaves_with_path
+    from repro_torch.data import lm_batch
+    from repro_torch.guard.scenario import trend_policy
+    from repro_torch.models import lm_loss
+
+    tr = _guard_trainer(params, cfg, trend_policy(), inject=False,
+                        spike_factor=float("inf"), dev=dev)
+    batch = lm_batch(0, cfg.vocab, 8, 512, SEED, device=dev)
+    leaves = [t for _, t in tree_leaves_with_path(tr.params)]
+
+    def grads(q):
+        loss, _ = lm_loss(tr.params, batch, cfg, q)
+        return list(torch.autograd.grad(loss, leaves))
+    mx, exact = grads(tr.qcfg), grads(tr.qcfg.to_fp32())
+    zb = zeta_bound(exact, mx)
+    ge = torch.cat([g.reshape(-1).double() for g in exact])
+    gq = torch.cat([g.reshape(-1).double() for g in mx])
+    want = {"zeta": float(zb["norm_ratio"]), "cosine": float(zb["cosine"]),
+            "zeta_fp64": float(torch.linalg.norm(gq - ge)
+                               / torch.linalg.norm(ge)),
+            "cosine_fp64": float(gq @ ge / (torch.linalg.norm(gq)
+                                            * torch.linalg.norm(ge)))}
+    del mx, exact, ge, gq
+    tr.run(1)
+    got = {"zeta": float(tr._mstate.zeta),
+           "cosine": float(tr._mstate.cosine),
+           "history_zeta": tr.history[0]["guard_zeta"],
+           "probe_age": float(tr._mstate.probe_age)}
+    ok = (got["probe_age"] == 0 and got["history_zeta"] == got["zeta"]
+          and all(abs(got["zeta"] - want[k]) <= PROBE_REL * want[k]
+                  for k in ("zeta", "zeta_fp64"))
+          and all(abs(got["cosine"] - want[k]) <= PROBE_ABS
+                  for k in ("cosine", "cosine_fp64")))
+    return {"trainer": got, "here": want, "rel_tol": PROBE_REL,
+            "abs_tol": PROBE_ABS, "ok": ok}
+
+
+def phase_guard(params, cfg, train, dev: str = "cuda"):
+    """The precision autopilot on the card, as the reference's acceptance
+    scenario (tests/test_guard.py, benchmarks/guard_autopilot.py) at
+    olmo-paper's full width: the fixed scheme exhausts its recoveries; the
+    trend policy with a probe every 5 steps escalates before the watchdog,
+    de-escalates and completes; its ζ and cosine on a probe step equal
+    zeta_bound of MX and fp32 gradients taken in the phase on the same
+    weights and batch; the journaled schedule replays it bitwise;
+    launches per step match each rung ([train]'s per-step counts, plus one
+    flash forward and dgrad a layer on probe steps); a mid-escalation
+    checkpoint resumes the controller and trains on bitwise; the journal
+    survives JSONL.  Times a ζ-probe step against a plain one, the
+    monitors' overhead with the probe off (<= MONITOR_OVERHEAD_MAX) and
+    the de-escalated against the pre-escalation step (<=
+    DEESCALATE_RECOVERY_MAX).  Returns the numbers, the autopilot's
+    launch counts and its trainer."""
+    import shutil
+    import warnings
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.guard import scheduled_policy
+    from repro_torch.guard.scenario import (DEESCALATE_RECOVERY_MAX,
+                                            MONITOR_OVERHEAD_MAX,
+                                            trend_policy)
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Journal
+
+    base = preset(GUARD_PRESET)
+    L = cfg.n_layers
+    ckdir = ROOT / "build" / "chip_smoke_guard_ckpt"
+    out = {"preset": GUARD_PRESET, "steps": GUARD_STEPS}
+
+    # 1. the fixed scheme: spike, rollback, the same spike, exhausted
+    shutil.rmtree(ckdir, ignore_errors=True)
+    fixed = _guard_trainer(params, cfg, None, ckpt_dir=str(ckdir),
+                           ckpt_every=10, dev=dev)
+    t0 = time.perf_counter()
+    fixed.run(GUARD_STEPS)
+    recs = fixed.events.of_kind("recovery")
+    out["fixed"] = {"last_event": fixed.events[-1]["event"],
+                    "final_step": fixed.step, "wall_s":
+                    time.perf_counter() - t0,
+                    "recoveries": [(r["step"], r["reason"]) for r in recs]}
+    print("[guard] fixed " + json.dumps(out["fixed"]), flush=True)
+    if not (fixed.events[-1]["event"] == "recovery_exhausted"
+            and len(recs) == 2 and fixed.step < GUARD_STEPS):
+        raise AssertionError(f"the fixed scheme did not exhaust its "
+                             f"recoveries: {out['fixed']}")
+    first_spike = int(recs[0]["reason"].split("@step")[1].split(":")[0])
+    del fixed
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    # 1b. the ζ probe: the Trainer's channels against gradients taken here
+    out["probe"] = _guard_probe_check(params, cfg, dev)
+    print("[guard] probe " + json.dumps(out["probe"]), flush=True)
+    if not out["probe"]["ok"]:
+        raise AssertionError(f"the Trainer's ζ probe disagrees with "
+                             f"zeta_bound of the same gradients: "
+                             f"{out['probe']}")
+
+    # 2. the autopilot, launches counted per step
+    snaps = []
+    auto = _guard_trainer(params, cfg, trend_policy(), snaps=snaps, dev=dev)
+    _sync(dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    hist = auto.run(GUARD_STEPS)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    per_step = _step_launches(snaps, counts)
+    journal = auto._controller.journal
+    events = [e["event"] for e in auto.events]
+    trans = [(t["step"], t["kind"], t["to_level"]) for t in journal]
+    out["autopilot"] = {
+        "transitions": trans, "wall_s": wall, "final_level":
+        auto._controller.level, "first_spike_without_guard": first_spike,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()
+        if dev == "cuda" else None,
+        "losses": [h["loss"] for h in hist],
+        "zeta": {h["step"]: h["guard_zeta"] for h in hist
+                 if h["step"] % 5 == 0},
+        "launches": counts}
+    print("[guard] autopilot " + json.dumps(out["autopilot"]), flush=True)
+    kinds = [k for _, k, _ in trans]
+    if not ("recovery" not in events and "recovery_exhausted" not in events
+            and len(hist) == GUARD_STEPS and "escalate" in kinds
+            and "deescalate" in kinds and trans[0][1] == "escalate"
+            and trans[0][0] <= first_spike
+            and auto.qcfg == base and auto._controller.level == 0):
+        raise AssertionError(f"the autopilot did not escalate before the "
+                             f"watchdog (step {first_spike}), de-escalate "
+                             f"and finish: {trans}, events {events}")
+    if not all(math.isfinite(x) for x in out["autopilot"]["losses"]):
+        raise AssertionError("the autopilot's losses are not finite")
+    idle = sorted(k for k in _train_kernels(GUARD_PRESET) if counts[k] == 0)
+    if idle:
+        raise AssertionError(f"kernels never launched by the guarded "
+                             f"run: {idle}")
+
+    # launches per step against each rung
+    sched = auto._controller.schedule()
+
+    def level_at(s):
+        lv = 0
+        for step, to in sched:
+            if step <= s:
+                lv = to
+        return lv
+    rungs = {}
+    for s, c in per_step.items():
+        if s % 5 and s > 0:
+            rungs.setdefault(level_at(s), []).append(c)
+    want = {0: train["mxfp8_e4m3"]["launches_per_step"],
+            1: train["e4m3_bf16act"]["launches_per_step"]}
+    rung_counts = {}
+    for lv, cs in rungs.items():
+        if any(c != cs[0] for c in cs):
+            raise AssertionError(f"level {lv}: launches differ between "
+                                 f"plain steps: {cs}")
+        rung_counts[lv] = cs[0]
+        if lv in want and any(cs[0][k] != want[lv][k] for k in cs[0]):
+            raise AssertionError(f"level {lv}: launches per step "
+                                 f"{cs[0]}, [train] {want[lv]}")
+    if rung_counts[1]["mx_quantize"] or rung_counts[1]["mx_matmul_wgrad"] \
+            or not rung_counts[0]["mx_quantize"]:
+        raise AssertionError(f"bf16_activations did not stop the "
+                             f"activation quantizes: {rung_counts}")
+    extra = {}
+    for s, c in per_step.items():
+        if s % 5 == 0:
+            d = {k: c[k] - rung_counts[level_at(s)][k] for k in c}
+            extra[s] = {k: v for k, v in d.items() if v}
+            if d["mx_flash_attention"] != L or \
+                    d["mx_flash_attention_bwd"] != L or \
+                    any(v for k, v in d.items() if k not in (
+                        "mx_flash_attention", "mx_flash_attention_bwd")):
+                raise AssertionError(f"probe step {s} launched {d} more "
+                                     f"than a plain step")
+    out["launches_per_step_by_level"] = rung_counts
+    out["probe_step_extra_launches"] = extra[0]
+    print("[guard] launches per step by level " + json.dumps(rung_counts)
+          + " probe step extra " + json.dumps(extra[0]), flush=True)
+
+    # timings: probe step, pre-escalation and de-escalated plain steps
+    t_ms = {h["step"]: h["time_s"] * 1e3 for h in hist}
+    esc = trans[0][0]
+    de = next(s for s, k, _ in trans if k == "deescalate")
+    pre = [t_ms[s] for s in range(1, esc) if s % 5]
+    probe = [t_ms[s] for s in range(5, esc, 5)]
+    post = [t_ms[s] for s in range(de + 1, GUARD_STEPS) if s % 5]
+    timing = {"plain_step_ms": _median(pre),
+              "probe_step_ms": _median(probe),
+              "probe_steps_ms": probe,
+              "deescalated_step_ms": _median(post)}
+    timing["probe_over_plain"] = timing["probe_step_ms"] / \
+        timing["plain_step_ms"]
+    timing["deescalated_over_pre"] = timing["deescalated_step_ms"] / \
+        timing["plain_step_ms"]
+    plain_tr = _guard_trainer(params, cfg, None, inject=False,
+                              spike_factor=float("inf"), dev=dev)
+    mon_tr = _guard_trainer(params, cfg, "conservative", probe=0,
+                            inject=False, spike_factor=float("inf"),
+                            dev=dev)
+    ms_plain, ms_mon = _paired_ms(plain_tr, mon_tr, dev)
+    del plain_tr, mon_tr
+    timing.update(paired_plain_ms=ms_plain, paired_monitored_ms=ms_mon,
+                  monitor_overhead=ms_mon / ms_plain - 1.0)
+    out["timing"] = timing
+    print("[guard] timing " + json.dumps(timing), flush=True)
+    if timing["monitor_overhead"] > MONITOR_OVERHEAD_MAX:
+        raise AssertionError(f"monitor overhead {timing['monitor_overhead']}"
+                             f" above {MONITOR_OVERHEAD_MAX}")
+    if timing["deescalated_over_pre"] > DEESCALATE_RECOVERY_MAX:
+        raise AssertionError(f"de-escalated step "
+                             f"{timing['deescalated_over_pre']}x the "
+                             f"pre-escalation step, above "
+                             f"{DEESCALATE_RECOVERY_MAX}")
+
+    # 3. bitwise replay of the journaled schedule
+    replay = _guard_trainer(params, cfg, scheduled_policy(
+        sched, ladder=auto._controller.policy.ladder), dev=dev)
+    h2 = replay.run(GUARD_STEPS)
+    same = [r["loss"] for r in h2] == [r["loss"] for r in hist]
+    rj = [(t["step"], t["to_level"]) for t in replay._controller.journal]
+    out["replay"] = {"bitwise": same, "journal": rj}
+    print("[guard] replay " + json.dumps(out["replay"]), flush=True)
+    if not same or rj != [(t["step"], t["to_level"]) for t in journal] \
+            or replay.qcfg != auto.qcfg:
+        raise AssertionError(f"the journaled schedule did not replay the "
+                             f"run bitwise: {out['replay']}")
+    del replay
+
+    # 4. the journal through JSONL
+    path = str(ROOT / "build" / "chip_smoke_guard_journal.jsonl")
+    ok_j = Journal.from_jsonl(journal.to_jsonl(path)) == journal
+    ok_e = Journal.from_jsonl(auto.events.to_jsonl(path)) == auto.events
+    if not (ok_j and ok_e):
+        raise AssertionError("the guard journal did not survive JSONL")
+
+    # 5. a checkpoint mid-escalation resumes the controller
+    shutil.rmtree(ckdir, ignore_errors=True)
+    r1 = _guard_trainer(params, cfg, trend_policy(), ckpt_dir=str(ckdir),
+                        ckpt_every=30, dev=dev)
+    r1.run(30)
+    r1._ckptr.wait()
+    r2 = _guard_trainer(params, cfg, trend_policy(), ckpt_dir=str(ckdir),
+                        ckpt_every=10 ** 6, dev=dev)
+    with warnings.catch_warnings():
+        # the restore warns that it adopts the checkpoint's qcfg
+        warnings.simplefilter("ignore", UserWarning)
+        restored = r2.restore()
+    h3 = r2.run(3)
+    resume = {"restored": restored, "step": r2.step - 3,
+              "level": r2._controller.level,
+              "journal_equal": r2._controller.journal == r1._controller.journal,
+              "guard_restored": len(r2.events.of_kind("guard_restored")),
+              "losses_bitwise": [h["loss"] for h in h3]
+              == [h["loss"] for h in hist[30:33]]}
+    out["resume"] = resume
+    print("[guard] resume " + json.dumps(resume), flush=True)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if not (restored and resume["step"] == 30 and resume["level"] ==
+            r1._controller.level > 0 and resume["journal_equal"]
+            and resume["guard_restored"] == 1 and r2.qcfg == r1.qcfg
+            and resume["losses_bitwise"]):
+        raise AssertionError(f"the mid-escalation resume failed: {resume}")
+    del r1, r2
+    return out, counts, auto
+
+
+def _greedy(engine, prompts, n_new: int = 16):
+    """Tokens of each prompt: greedy, and for the last two also sampled
+    (temperature 0.8, top-k 50, a seed each), so a logit that moves can
+    show even where the greedy argmax does not."""
+    from repro_torch.serve import SamplingParams
+    sps = [SamplingParams(max_new_tokens=n_new) for _ in prompts] + [
+        SamplingParams(temperature=0.8, top_k=50, max_new_tokens=n_new,
+                       seed=i) for i in range(2)]
+    rids = [engine.submit(p, sp)
+            for p, sp in zip(list(prompts) + list(prompts[-2:]), sps)]
+    done = {r.rid: r for r in engine.drain()}
+    return [list(done[r].tokens) for r in rids]
+
+
+def phase_snapshot(trainer, cfg, dev: str = "cuda"):
+    """snapshot_to_serve from the [guard] autopilot's trainer (olmo-paper
+    full after 80 steps) into a ServeEngine (4 rows x 512) and a
+    PagedServeEngine (6 rows, 64 pages of 32): greedy tokens of 4 prompts
+    bitwise those of engines built from a checkpoint round trip of the
+    same step in the reference's files (benchmarks/runtime_unify.py's
+    gate; two sampled requests too), the engines' weights bitwise equal,
+    unchanged after 3 more training steps; no engine tensor shares
+    storage with a trainer tensor.  Prints each snapshot's ms and peak
+    memory.  Returns the numbers and the launch counts of the phase."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.convert import lm_checkpoint_layout
+    from repro_torch.core.diagnostics import tree_leaves_with_path
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import snapshot_to_serve
+    from repro_torch.serve import PagedServeEngine, ServeEngine
+    from repro_torch.train import restore, save
+
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(1, cfg.vocab, size=n).astype(np.int32)
+               for n in (40, 100, 300, 64)]
+    kinds = {"slab": dict(max_batch=4, max_len=512),
+             "paged": dict(max_batch=6, max_len=512, n_pages=64,
+                           page_size=32)}
+    ckdir = ROOT / "build" / "chip_smoke_snapshot_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    to_ref, from_ref = lm_checkpoint_layout(cfg, dev)
+    template = to_ref({"params": trainer.params, "opt": trainer.opt_state})
+    t0 = time.perf_counter()
+    save(str(ckdir), trainer.step, template, {})
+    tree, _, _ = restore(str(ckdir), template, trainer.step)
+    ck_params = from_ref(tree)["params"]
+    ckpt_s = time.perf_counter() - t0
+    shutil.rmtree(ckdir, ignore_errors=True)
+    trainer_ptrs = {t.untyped_storage().data_ptr()
+                    for _, t in tree_leaves_with_path(trainer.params)}
+    out, engines = {"step": trainer.step, "ckpt_round_trip_s": ckpt_s}, {}
+    ops.reset_launches()
+    for kind, kw in kinds.items():
+        _sync(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = snapshot_to_serve(trainer, cfg, paged=kind == "paged", **kw)
+        _sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - before \
+            if dev == "cuda" else None
+        shared = trainer_ptrs & {t.untyped_storage().data_ptr()
+                                 for _, t in tree_leaves_with_path(
+                                     eng.params)}
+        live = _greedy(eng, prompts)
+        cls = PagedServeEngine if kind == "paged" else ServeEngine
+        ck_eng = cls(ck_params, cfg, trainer.qcfg, device=dev, **kw)
+        ck = _greedy(ck_eng, prompts)
+        ck_w = dict(tree_leaves_with_path(ck_eng.params))
+        same_w = all(torch.equal(t, ck_w[p])
+                     for p, t in tree_leaves_with_path(eng.params))
+        engines[kind] = (eng, live)
+        out[kind] = {"snapshot_ms": ms, "peak_bytes_over_trainer": peak,
+                     "shared_storages": len(shared),
+                     "weights_bitwise_ckpt": same_w,
+                     "tokens_bitwise_ckpt": live == ck, "tokens": live}
+        if shared or live != ck or not same_w:
+            raise AssertionError(f"{kind} snapshot: {len(shared)} shared "
+                                 f"storages, weights equal {same_w}, "
+                                 f"tokens {live} against the checkpoint's "
+                                 f"{ck}")
+    counts = dict(ops.LAUNCHES)
+    trainer.run(3)
+    for kind, (eng, live) in engines.items():
+        after = _greedy(eng, prompts)
+        out[kind]["tokens_unchanged_after_3_steps"] = after == live
+        if after != live:
+            raise AssertionError(f"{kind} snapshot's tokens moved after "
+                                 f"trainer.run(3): {after} / {live}")
+    recs = trainer.events.of_kind("snapshot_to_serve")
+    out["journal"] = recs[-2:]
+    out["launches"] = counts
+    print("[snapshot] " + json.dumps(out), flush=True)
+    idle = sorted(k for k in ("mx_quantize", "mx_matmul",
+                              "mx_flash_attention", "mx_attention_decode",
+                              "mx_attention_decode_paged")
+                  if counts[k] == 0)
+    if idle:
+        raise AssertionError(f"kernels never launched by the snapshot "
+                             f"engines: {idle}")
+    return out, counts
+
+
 def phase_proxy():
     """The paper's student-teacher proxy at ProxyConfig() (d_model 512, 4
     layers, hidden 2048, batch 2048) under mxfp8_e4m3 for 20 steps: the
@@ -3622,6 +4099,9 @@ def main() -> int:
     train = phase_train(params, cfg)
     phase_grad_parity(params, cfg)
     phase_recovery(params, cfg)
+    _, guard_counts, guarded = phase_guard(params, cfg, train)
+    _, snapshot_counts = phase_snapshot(guarded, cfg)
+    del guarded
     phase_proxy()
     sweep = phase_sweep()
     phase_sweep_parity()
@@ -3632,7 +4112,9 @@ def main() -> int:
     # mxfp8_e4m3, counts set to 0 just before it (serving for the slice-1
     # kernels, 20 training steps for the backward kernels, the paged
     # engine's bursty trace for the paged decode kernel, the fig6 sweep at
-    # full budget for the lane kernels).
+    # full budget for the lane kernels); "launches_guard" and
+    # "launches_snapshot" over the [guard] autopilot's 80 steps and the
+    # [snapshot] engines' serving.
     serve_path = ("mx_quantize", "mx_matmul", "mx_flash_attention",
                   "mx_attention_decode")
     train_counts = train["mxfp8_e4m3"]["counts"]
@@ -3656,6 +4138,8 @@ def main() -> int:
             "launches_serve": counts["mxfp8_e4m3"][name],
             "launches_train": train_counts[name],
             "launches_paged": paged_counts[name],
+            "launches_guard": guard_counts[name],
+            "launches_snapshot": snapshot_counts[name],
             "launches_per_prefill": per_prefill[name],
             "launches_per_decode_step": per_decode[name],
             "launches_per_paged_decode_step": per_paged[name],

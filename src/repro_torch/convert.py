@@ -10,8 +10,8 @@ order.  Every reference leaf must be used exactly once: a missing leaf,
 a shape that differs, or a leaf left over raises.
 
 ``params_to_jax(params, cfg)`` is the inverse: the reference's stacked
-tree with CPU tensors as leaves (``.numpy()`` of an fp32 leaf is what
-``jax.numpy.asarray`` takes).  ``lm_checkpoint_layout(cfg)`` applies the
+tree with the port's tensors, stacked on their own device, as leaves
+(``.numpy()`` of an fp32 CPU leaf is what ``jax.numpy.asarray`` takes).  ``lm_checkpoint_layout(cfg)`` applies the
 pair to a Trainer's whole {"params", "opt"} tree (the AdamW moments and
 masters have the parameters' structure), so the port writes and reads
 the reference's checkpoints.
@@ -153,10 +153,10 @@ def params_from_jax(tree_or_npz, cfg: LMConfig, device=None) -> dict:
 
 def params_to_jax(params, cfg: LMConfig) -> dict:
     """The reference's parameter tree (layers stacked by scan group,
-    ``blocks[g]["b{j}"][n_rep, ...]``) with the port's tensors, on the CPU
-    and in their own dtypes."""
+    ``blocks[g]["b{j}"][n_rep, ...]``) with the port's tensors, detached,
+    in their own dtypes and on their own device."""
     check_supported(cfg)
-    out = {k: {kk: vv.detach().cpu() for kk, vv in params[k].items()}
+    out = {k: {kk: vv.detach() for kk, vv in params[k].items()}
            for k in ("embed", "final_ln", "lm_head")}
     layers = params["layers"]
     blocks, i = [], 0
@@ -174,14 +174,17 @@ def params_to_jax(params, cfg: LMConfig) -> dict:
 def _stack(trees):
     if isinstance(trees[0], Mapping):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack([t.detach().cpu() for t in trees])
+    return torch.stack([t.detach() for t in trees])
 
 
 def lm_checkpoint_layout(cfg: LMConfig, device=None):
     """(to_ref, from_ref) for a Trainer's {"params", "opt"} tree: the
     parameters and the AdamW ``m``, ``v`` and ``master`` trees go to and
     from the reference's stacked layout; ``count`` stays as it is.
-    ``from_ref`` places the tensors on ``device`` (default ``cuda``)."""
+    ``to_ref`` stacks on the tensors' own device (the checkpoint writer
+    moves them to the host; the guard's probes read the stacked leaves
+    as the reference's do); ``from_ref`` places the tensors on
+    ``device`` (default ``cuda``)."""
     def to_ref(tree):
         opt = {k: (params_to_jax(v, cfg) if k in ("m", "v", "master")
                    else v) for k, v in tree["opt"].items()}

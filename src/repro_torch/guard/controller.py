@@ -1,9 +1,9 @@
 """PrecisionController: drives QuantConfig transitions from a guard policy.
 
-A copy of ``repro.guard.controller``.  In the port it serves the host-side
-uses (scheduled policies in ``plan_segments`` and the sweeps, advisory
-journals over a pack's recorded histories); the Trainer's online guard is
-ROADMAP Queue A item 2.
+A copy of ``repro.guard.controller``.  It drives the Trainer's online
+guard (``TrainerConfig.guard``), splits scheduled policies in
+``plan_segments`` and the sweeps, and journals online policies
+advisorily over a pack's recorded histories.
 
 The controller owns the *current* precision scheme of a run.  Each
 evaluation (:meth:`observe`) feeds one step's risk signals to the policy;

@@ -2,15 +2,16 @@
 
   python -m repro_torch.launch.train --variant full --precision mxfp8_e4m3 \
       --steps 200 --batch 8 --seq 512 [--ckpt-dir DIR] [--resume] \
-      [--auto-intervention bf16_activations] [--device cuda]
+      [--auto-intervention bf16_activations] [--guard autopilot] \
+      [--guard-probe-every 25] [--guard-journal FILE] [--device cuda]
 
-Runs the fault-tolerant Trainer (spike watchdog, rollback, precision
-intervention) on olmo-paper with the deterministic synthetic LM stream,
-on ``cuda`` unless ``--device cpu`` is given.  Checkpoints are the JAX
-reference's npz files, so ``python -m repro.launch.train --resume`` can
-continue a run written here, and the other way round.  Counterpart of
-``repro.launch.train``; ``--guard`` belongs to ROADMAP Queue A item 2,
-``--mesh`` and the cross-pod compression to item 6.
+Runs the fault-tolerant Trainer (precision autopilot, spike watchdog,
+rollback, precision intervention) on olmo-paper with the deterministic
+synthetic LM stream, on ``cuda`` unless ``--device cpu`` is given.
+Checkpoints are the JAX reference's npz files, guard state included, so
+``python -m repro.launch.train --resume`` can continue a run written
+here, and the other way round.  Counterpart of ``repro.launch.train``;
+``--mesh`` and the cross-pod compression are ROADMAP Queue A item 6.
 """
 from __future__ import annotations
 
@@ -32,9 +33,22 @@ def _parse_args(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--auto-intervention", default="bf16_activations")
+    ap.add_argument("--guard", default=None,
+                    help="precision-autopilot policy: a guard preset "
+                         "(autopilot|aggressive|conservative) or a "
+                         "declarative schedule sched:STEP=LEVEL|NAME,... "
+                         "(first line of defense ahead of the recovery "
+                         "watchdog)")
+    ap.add_argument("--guard-probe-every", type=int, default=25,
+                    help="guard ζ-bound/LN-clamp probe stride in steps "
+                         "(0 disables the probes; cheap channels stay on)")
+    ap.add_argument("--guard-journal", default=None,
+                    help="write the guard transition journal to this JSONL "
+                         "path at exit")
     ap.add_argument("--journal", default=None,
                     help="write the run journal (run_start / segment / "
-                         "recovery records) to this JSONL path at exit")
+                         "guard / recovery records) to this JSONL path at "
+                         "exit")
     ap.add_argument("--log-jsonl", default=None)
     ap.add_argument("--log-every", type=int, default=50,
                     help="host-sync/log window (steps); metrics stay on "
@@ -71,7 +85,8 @@ def main(argv=None):
                          ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                          auto_intervention=args.auto_intervention,
                          log_every=args.log_every,
-                         grad_accum=args.grad_accum)
+                         grad_accum=args.grad_accum, guard=args.guard,
+                         guard_probe_every=args.guard_probe_every)
     trainer = Trainer(
         loss_fn=lambda p, b, q: lm_loss(p, b, cfg, q), params=params,
         qcfg=qcfg,
@@ -88,6 +103,12 @@ def main(argv=None):
               f"gnorm {rec['grad_norm']:.3f} {rec['time_s'] * 1e3:.0f}ms")
     if trainer.events:
         print("[train] events:", json.dumps(trainer.events, indent=1))
+    if trainer._controller is not None:
+        print(f"[train] guard: level {trainer._controller.level}, "
+              f"{len(trainer._controller.journal)} transition(s), final "
+              f"precision {trainer.qcfg.describe()}")
+        if args.guard_journal:
+            trainer._controller.journal.to_jsonl(args.guard_journal)
     if args.journal:
         trainer.events.to_jsonl(args.journal)
     if args.log_jsonl:

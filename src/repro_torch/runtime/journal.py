@@ -4,10 +4,10 @@ Counterpart of ``repro.runtime.journal``: a :class:`Journal` is a ``list``
 of ``{"event": kind, ...}`` records, validated on append, with a JSONL
 round trip; :class:`JsonlSink` is the append + fsync writer of the sweep's
 RunDB; :func:`checkpoint_meta` builds the meta the Trainer persists
-(qcfg, recoveries, segment index) and :func:`parse_checkpoint_meta`
-inverts it.  The meta is the reference's JSON, so a checkpoint's meta
-reads the same in either package (a reference meta's guard state is
-ignored: the Trainer's online guard is ROADMAP Queue A item 2).
+(qcfg, recoveries, segment index and, with a live guard, the controller's
+state) and :func:`parse_checkpoint_meta` inverts it.  The meta is the
+reference's JSON, so a checkpoint's meta, guard state included, reads the
+same in either package.
 """
 from __future__ import annotations
 
@@ -108,20 +108,28 @@ class Journal(list):
 
 
 class RestoredMeta(NamedTuple):
+    """Parsed checkpoint meta: ``qcfg`` a QuantConfig (None when the meta
+    predates it), ``guard`` the controller's raw ``state_dict`` (None
+    without a guard)."""
     step: Optional[int]
     qcfg: Optional[Any]
     recoveries: Optional[int]
+    guard: Optional[dict]
     segment_index: int
 
 
 def checkpoint_meta(*, step: int, qcfg, recoveries: int = 0,
-                    segment_index: int = 0) -> dict:
+                    controller=None, segment_index: int = 0) -> dict:
     """The Trainer's checkpoint meta: the active precision scheme (so a
-    resume cannot silently revert an intervention), the recovery count and
-    the segment index."""
-    return {"step": int(step), "qcfg": qcfg.describe(),
+    resume cannot silently revert an intervention), the recovery count,
+    the segment index and, when a guard controller is live, its whole
+    autopilot state (level, hysteresis counters, journal)."""
+    meta = {"step": int(step), "qcfg": qcfg.describe(),
             "qcfg_dict": qcfg.to_dict(), "recoveries": int(recoveries),
             "segment_index": int(segment_index)}
+    if controller is not None:
+        meta["guard"] = controller.state_dict()
+    return meta
 
 
 def parse_checkpoint_meta(meta: Optional[dict]) -> RestoredMeta:
@@ -137,4 +145,5 @@ def parse_checkpoint_meta(meta: Optional[dict]) -> RestoredMeta:
         qcfg=qcfg,
         recoveries=(None if meta.get("recoveries") is None
                     else int(meta["recoveries"])),
+        guard=meta.get("guard"),
         segment_index=int(meta.get("segment_index", 0)))

@@ -41,8 +41,9 @@ is why one-lane packs are held to a tolerance and not bitwise.)
 Mid-run precision interventions (``RunSpec.phases``) and *scheduled* guard
 policies split the step loop at their switch steps; *online* policies run
 advisorily over a pack's recorded histories (``guard.advisory_journals``).
-An online guard on an ``lm`` run (the Trainer's autopilot) is ROADMAP
-Queue A item 2 and raises; a device mesh is item 6 and raises.
+On an ``lm`` run an online policy is the Trainer's real autopilot: its
+transitions happen, and its journal is the run's.  A device mesh is
+ROADMAP Queue A item 6 and raises.
 
 Per-lane accounting is host-side: :class:`core.BatchedSpikeDetector` flags
 (one detector per lane), the Fig. 6 divergence rule, the Fig. 7
@@ -69,9 +70,6 @@ __all__ = ["RunResult", "SweepReport", "ProxyPack", "run_sweep",
 # 100x the best loss it ever reached.
 DIVERGENT_FACTOR = 100.0
 
-_ONLINE_GUARD = ("an online guard policy on an lm run needs the Trainer's "
-                 "online guard (TrainerConfig.guard), ROADMAP Queue A item "
-                 "2, not ported yet")
 _MESH = ("sharded sweeps (mesh) are ROADMAP Queue A item 6 (distribution), "
          "not ported yet")
 
@@ -391,6 +389,7 @@ def lm_config(r: RunSpec):
 
 def _run_lm_run(r: RunSpec, device=None, keep_history: bool = False,
                 keep_params: bool = False) -> RunResult:
+    from repro_torch.convert import lm_checkpoint_layout
     from repro_torch.core import preset
     from repro_torch.data import lm_input_arrays
     from repro_torch.devices import resolve_device
@@ -405,10 +404,16 @@ def _run_lm_run(r: RunSpec, device=None, keep_history: bool = False,
             f"(got optimizer={r.optimizer!r})")
     if r.track_bias_every:
         raise ValueError("track_bias_every is proxy-only (the Trainer "
-                         "does not recompute fp32 gradients per step)")
-    if (r.guard and not get_policy(r.guard).is_scheduled) \
-            or r.guard_probe_every:
-        raise NotImplementedError(_ONLINE_GUARD)
+                         "does not recompute fp32 gradients per step; use "
+                         "guard_probe_every for in-Trainer ζ probes)")
+    pol = get_policy(r.guard) if r.guard else None
+    online = pol is not None and not pol.is_scheduled
+    if online and r.phases:
+        raise ValueError(
+            "an online guard policy owns the trainer's qcfg, which would "
+            "fight the phases' segment switches: express the schedule as "
+            "part of a sched: guard policy instead of mixing an online "
+            "guard with phases")
     device = resolve_device(device)
     cfg = lm_config(r)
     get_schedule(r.lr_schedule)   # reject unknown names up front
@@ -421,12 +426,16 @@ def _run_lm_run(r: RunSpec, device=None, keep_history: bool = False,
             f"lm runs map lr schedules onto the Trainer's warmup-cosine "
             f"and support only constant/cosine, got {r.lr_schedule!r}")
     # Recovery off: a non-finite loss aborts the run (max_recoveries=0),
-    # which is exactly "this run diverged".
+    # which is exactly "this run diverged".  Only an online guard needs a
+    # drain every step (its transitions land at drains); scheduled
+    # policies split the run into segments below.
     tcfg = TrainerConfig(
         total_steps=r.steps, peak_lr=peak, init_lr=init, end_lr=end,
         auto_intervention=None, max_recoveries=0,
         spike_factor=float("inf"), grad_factor=float("inf"),
-        log_every=min(50, max(r.steps, 1)))
+        log_every=1 if online else min(50, max(r.steps, 1)),
+        guard=r.guard if online else None,
+        guard_probe_every=r.guard_probe_every)
     segs = _phase_segments(r, preset(r.scheme))
     trainer = Trainer(
         loss_fn=lambda p, b, q: lm_loss(p, b, cfg, q),
@@ -437,10 +446,11 @@ def _run_lm_run(r: RunSpec, device=None, keep_history: bool = False,
                                            device=device),
         opt_cfg=AdamWConfig(weight_decay=r.weight_decay,
                             grad_clip=r.grad_clip),
-        tcfg=tcfg)
+        tcfg=tcfg, ckpt_layout=lm_checkpoint_layout(cfg, device))
     t0 = time.perf_counter()
     for _, end_step, qcfg_seg in segs:
-        trainer.qcfg = qcfg_seg
+        if not online:
+            trainer.qcfg = qcfg_seg
         if trainer.step < end_step:
             trainer.run(end_step - trainer.step)
         if len(trainer.history) < min(end_step, r.steps):   # aborted
@@ -459,7 +469,8 @@ def _run_lm_run(r: RunSpec, device=None, keep_history: bool = False,
     return _account(r, losses, gnorms, flags,
                     wall / max(len(losses), 1) * 1e6, history=hist,
                     final_params=trainer.params if keep_params else None,
-                    guard_journal=_scheduled_journal(r))
+                    guard_journal=(list(trainer._controller.journal)
+                                   if online else _scheduled_journal(r)))
 
 
 # ---------------------------------------------------------------------------

@@ -83,9 +83,8 @@ class RunSpec:
     # guard policy (guard.get_policy name / "sched:..." spec; "" = off).
     # Scheduled policies split the segments exactly like `phases`; online
     # policies run *advisorily* (post-hoc per-lane accounting) on proxy
-    # packs, where a mid-pack scheme change would break lane packing (the
-    # online autopilot of `kind="lm"` runs is ROADMAP Queue A item 2 in
-    # the port).
+    # packs, where a mid-pack scheme change would break lane packing;
+    # on `kind="lm"` runs they are the Trainer's real autopilot.
     guard: str = ""
     guard_probe_every: int = 0        # lm-only: guard ζ/clamp probe stride
     # diagnostics

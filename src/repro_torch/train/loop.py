@@ -2,7 +2,18 @@
 
 Counterpart of ``repro.train.loop`` on a single device:
 
-  1. watchdog: :class:`SpikeDetector` on loss and gradient norm (App. B);
+  0. autopilot (first line): with ``TrainerConfig.guard`` set, a
+     :class:`repro_torch.guard.PrecisionController` reads the step's risk
+     signals (loss trend, grad-norm ratio, and every
+     ``guard_probe_every`` steps the ζ-bound and LN-clamp probes, see
+     ``guard/monitors.py``) and escalates the precision scheme before the
+     watchdog would fire; after a stability window it de-escalates back
+     toward MX.  Each transition is a ``guard_transition`` record (qcfg
+     before and after), rides checkpoint meta, and takes effect at a
+     metric-drain boundary (every step with ``log_every=1``), so the
+     journaled schedule replays the run bitwise;
+  1. watchdog (last line): :class:`SpikeDetector` on loss and gradient
+     norm (App. B);
   2. on a spike: roll back to the last clean checkpoint;
   3. apply the configured intervention (default "bf16_activations", the
      paper's strongest immediate stabilizer, Fig. 7) and resume from the
@@ -20,11 +31,11 @@ their window drained clean.  A step-time monitor flags stragglers.
 
 The step runs eagerly: the forward, ``torch.autograd.grad`` through the
 ``mx_contract`` Functions (the MX GEMM, flash and quantize kernels on
-CUDA) and an in-place AdamW update.  With a ``ckpt_layout`` (see
-``repro_torch.convert.lm_checkpoint_layout``) checkpoints are the
-reference's files.  The precision autopilot (``guard``) is ROADMAP Queue
-A item 2; meshes and the cross-pod gradient compression are item 6; both
-raise.
+CUDA) and an in-place AdamW update.  A guarded step runs its probes
+before that update, so they read the weights the step trained with.
+With a ``ckpt_layout`` (see ``repro_torch.convert.lm_checkpoint_layout``)
+checkpoints are the reference's files.  Meshes and the cross-pod
+gradient compression are ROADMAP Queue A item 6 and raise.
 """
 from __future__ import annotations
 
@@ -44,8 +55,6 @@ from repro_torch.runtime import (Journal, MemoryLedger, MetricsWindow,
 
 __all__ = ["TrainerConfig", "Trainer", "make_train_step"]
 
-_GUARD_LATER = ("is ROADMAP Queue A item 2 (the Trainer's online guard), "
-                "not ported yet")
 _MESH_LATER = "is ROADMAP Queue A item 6 (distribution), not ported yet"
 
 
@@ -64,8 +73,11 @@ class TrainerConfig:
     grad_factor: float = 50.0
     auto_intervention: Optional[str] = "bf16_activations"
     max_recoveries: int = 3
-    # precision autopilot: not ported (raises when set)
+    # precision autopilot (first line of defense; repro_torch.guard): a
+    # policy preset name ("autopilot", "aggressive", ..., or
+    # "sched:STEP=..."), or a GuardPolicy.  None disables the controller.
     guard: Optional[Any] = None
+    guard_probe_every: int = 25       # ζ/clamp probe stride (0 = off)
     # straggler monitor
     straggler_factor: float = 3.0
     log_every: int = 50
@@ -111,13 +123,25 @@ def _microbatched(batch, n: int):
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
-                    tcfg: TrainerConfig, mesh=None):
+                    tcfg: TrainerConfig, mesh=None, monitors=None,
+                    probe_view: Optional[Callable] = None):
     """``loss_fn(params, batch, qcfg) -> (loss, metrics)``.  Returns
     ``step_fn(params, opt_state, batch, step, qcfg) -> (params, opt_state,
     metrics)``, which updates params and opt_state in place; metrics are
     0-d tensors.  ``grad_accum > 1`` sums the microbatches' losses,
     metrics and gradients in fp32, each divided by the count, in the
-    reference's order."""
+    reference's order.
+
+    With ``monitors`` (a ``repro_torch.guard.MonitorConfig``) the step is
+    ``step_fn(params, opt_state, mon_state, batch, step, qcfg) ->
+    (params, opt_state, mon_state, metrics)``: the risk signals join the
+    metrics under ``guard_*`` keys.  On probe steps the probes (the fp32
+    backward of the ζ probe among them) run before the in-place update;
+    on other steps they do not run.  ``probe_view`` maps a params-shaped
+    tree to the tree every probe reads: the params, the step's gradients
+    and the fp32 reference gradients alike, so the ζ-bound pairs each
+    element with its own (the Trainer gives its ``ckpt_layout``'s
+    reference layout); identity by default."""
     if mesh is not None or tcfg.pod_compression:
         raise NotImplementedError(f"sharded training (mesh, "
                                   f"pod_compression) {_MESH_LATER}")
@@ -147,17 +171,48 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
                          [a + b for a, b in zip(total[2], part[2])]]
         return total[0], total[1], total[2]
 
-    def step_fn(params, opt_state, batch, step: int, qcfg: QuantConfig):
-        loss, metrics, grads = grads_of(params, batch, qcfg)
+    def update(params, opt_state, grads, metrics, loss, step: int):
         lr = warmup_cosine(step, tcfg.total_steps, tcfg.peak_lr,
                            tcfg.init_lr, tcfg.end_lr, tcfg.warmup_frac)
-        params, opt_state, om = adamw_update(_unflatten(params, grads),
-                                             opt_state, params, lr, opt_cfg)
+        params, opt_state, om = adamw_update(grads, opt_state, params, lr,
+                                             opt_cfg)
         metrics.update(om)
         metrics["lr"] = lr
         metrics["loss"] = loss
         return params, opt_state, metrics
-    return step_fn
+
+    if monitors is None:
+        def step_fn(params, opt_state, batch, step: int, qcfg: QuantConfig):
+            loss, metrics, grads = grads_of(params, batch, qcfg)
+            return update(params, opt_state, _unflatten(params, grads),
+                          metrics, loss, step)
+        return step_fn
+
+    from repro_torch.guard import monitor_probe, monitor_update, probe_due
+    view = probe_view or _identity
+
+    def monitored_step_fn(params, opt_state, mstate, batch, step: int,
+                          qcfg: QuantConfig):
+        loss, metrics, grads = grads_of(params, batch, qcfg)
+        gtree = _unflatten(params, grads)
+        probed = None
+        if probe_due(monitors, step):
+            # before adamw_update rewrites the params in place: the clamp
+            # statistics and the fp32 reference backward must see the
+            # weights this step's gradients were taken at
+            probed = monitor_probe(
+                monitors, grads=view(gtree), params=view(params), qcfg=qcfg,
+                probe_fn=lambda: view(_unflatten(
+                    params, grads_of(params, batch, qcfg.to_fp32())[2])))
+        params, opt_state, metrics = update(params, opt_state, gtree,
+                                            metrics, loss, step)
+        mstate, sig = monitor_update(
+            monitors, mstate, step=step, loss=metrics["loss"],
+            gnorm=metrics["grad_norm"], probed=probed)
+        for name, v in sig._asdict().items():
+            metrics["guard_" + name] = v
+        return params, opt_state, mstate, metrics
+    return monitored_step_fn
 
 
 def _identity(tree):
@@ -180,9 +235,6 @@ class Trainer:
                  ckpt_layout=None):
         self.tcfg = tcfg or TrainerConfig()
         self.opt_cfg = opt_cfg or AdamWConfig()
-        if self.tcfg.guard is not None:
-            raise NotImplementedError(f"the precision autopilot (guard) "
-                                      f"{_GUARD_LATER}")
         self.loss_fn = loss_fn
         self.batch_fn = batch_fn
         self.qcfg = qcfg
@@ -196,15 +248,31 @@ class Trainer:
         self.step = 0
         self.detector = SpikeDetector(self.tcfg.spike_factor,
                                       self.tcfg.grad_factor)
-        self._step_fn = make_train_step(loss_fn, self.opt_cfg, self.tcfg,
-                                        mesh)
+        self._controller = self._mcfg = self._mstate = None
+        if self.tcfg.guard is not None:
+            from repro_torch.guard import (MonitorConfig,
+                                           PrecisionController, get_policy,
+                                           monitor_init)
+            policy = get_policy(self.tcfg.guard)
+            self._controller = PrecisionController(qcfg, policy)
+            if not policy.is_scheduled:
+                # a scheduled policy ignores the signals: no monitors, and
+                # no fp32 probe backward that decide() would discard
+                self._mcfg = MonitorConfig(
+                    probe_every=max(0, self.tcfg.guard_probe_every))
+                self._mstate = monitor_init(
+                    self._mcfg, _leaves(params)[0].device)
+        self._to_ref, self._from_ref = ckpt_layout or (_identity, _identity)
+        self._step_fn = make_train_step(
+            loss_fn, self.opt_cfg, self.tcfg, mesh, monitors=self._mcfg,
+            probe_view=lambda tree: self._to_ref(
+                {"params": tree, "opt": {}})["params"])
         self.history: List[Dict[str, float]] = []
         self.events: Journal = Journal()
         self._segments = SegmentTracker(qcfg, journal=self.events)
         self.ledger = MemoryLedger(name="trainer")
         self.ledger.account("params", self.params)
         self.ledger.account("opt", self.opt_state)
-        self._to_ref, self._from_ref = ckpt_layout or (_identity, _identity)
         self._ckptr = None
         if self.tcfg.ckpt_dir:
             from .checkpoint import Checkpointer
@@ -219,8 +287,11 @@ class Trainer:
 
     def checkpoint(self):
         if self._ckptr:
+            # the autopilot's state rides along, so a resume picks up
+            # mid-flight (level, hysteresis counters, journal)
             meta = checkpoint_meta(step=self.step, qcfg=self.qcfg,
                                    recoveries=self._recoveries,
+                                   controller=self._controller,
                                    segment_index=self._segments.index)
             self._ckptr.save(self.step, self._to_ref(self._tree()), meta)
 
@@ -262,6 +333,18 @@ class Trainer:
                     "from_qcfg": self.qcfg.describe(),
                     "to_qcfg": rm.qcfg.describe()})
                 self.qcfg = rm.qcfg
+            if self._controller is not None:
+                if rm.guard:
+                    self._controller.load_state_dict(rm.guard)
+                    self.events.append({
+                        "step": s, "event": "guard_restored",
+                        "level": self._controller.level,
+                        "transitions": len(self._controller.journal),
+                        "qcfg": self._controller.qcfg.describe()})
+                elif self._controller.qcfg != self.qcfg:
+                    # a checkpoint from before the guard: its scheme
+                    # becomes the controller's baseline
+                    self._controller.rebase(self.qcfg)
             self._segments.restore(rm.segment_index, self.qcfg)
         return True
 
@@ -274,9 +357,18 @@ class Trainer:
         if self.tcfg.auto_intervention:
             self.qcfg = apply_intervention(self.qcfg,
                                            self.tcfg.auto_intervention)
+            if self._controller is not None:
+                # the recovery's scheme is the new floor: without a rebase
+                # the controller's next transition would revert it
+                self._controller.rebase(self.qcfg)
         self._recoveries += 1
         self.detector = SpikeDetector(self.tcfg.spike_factor,
                                       self.tcfg.grad_factor)
+        if self._mcfg is not None:
+            # the EMAs describe the poisoned trajectory: restart them
+            from repro_torch.guard import monitor_init
+            self._mstate = monitor_init(self._mcfg,
+                                        self._mstate.count.device)
         self._segments.transition(self.step, self.qcfg, reason="recovery")
         self.events.append({
             "step": self.step, "event": "recovery", "reason": reason,
@@ -285,6 +377,25 @@ class Trainer:
         return rolled
 
     # ---- metric window ----------------------------------------------------
+    def _guard_pass(self, pending) -> bool:
+        """Feed the window's risk signals to the autopilot, before the
+        watchdog sees the window.  At most one transition per window; the
+        new scheme takes effect at ``self.step`` (the next step to run),
+        the step the journal records, so a scheduled replay switches at
+        the same boundary.  Transitions survive a later rollback."""
+        if self._controller is None:
+            return False
+        from repro_torch.guard import signals_from_metrics
+        for s, metrics, _ in pending:
+            new = self._controller.observe(s, signals_from_metrics(metrics),
+                                           effective_step=self.step)
+            if new is not None:
+                self.events.append(dict(self._controller.journal[-1]))
+                self.qcfg = new
+                self._segments.transition(self.step, new, reason="guard")
+                return True
+        return False
+
     def _drain(self, pending) -> tuple:
         """Record a window of (step, metrics, time_s) entries and feed the
         watchdog in order; stops at the first spike and returns (spike
@@ -296,6 +407,10 @@ class Trainer:
             med = sorted(win)[len(win) // 2]
             rec = {"step": s, "loss": loss, "grad_norm": gnorm,
                    "lr": metrics["lr"], "time_s": dt}
+            for k in ("guard_zeta", "guard_gnorm_ratio", "guard_loss_ratio",
+                      "guard_loss_curvature"):
+                if k in metrics:
+                    rec[k] = metrics[k]
             if dt > self.tcfg.straggler_factor * med and len(
                     self._step_times) > 8:
                 self.events.append({"step": s, "event": "straggler",
@@ -311,6 +426,8 @@ class Trainer:
         if not self.events or self.events[-1].get("event") != "run_start":
             self.events.append({"step": self.step, "event": "run_start",
                                 "device": str(first.device),
+                                "guard": self._controller.policy.name
+                                if self._controller is not None else None,
                                 "qcfg": self.qcfg.describe()})
         # n_steps=0 means nothing to do (a resume of a finished run)
         end = self.step + (self.tcfg.total_steps if n_steps is None
@@ -321,8 +438,15 @@ class Trainer:
         window.reset_clock()
         while self.step < end:
             batch = self.batch_fn(self.step)
-            self.params, self.opt_state, metrics = self._step_fn(
-                self.params, self.opt_state, batch, self.step, self.qcfg)
+            if self._mcfg is None:
+                self.params, self.opt_state, metrics = self._step_fn(
+                    self.params, self.opt_state, batch, self.step,
+                    self.qcfg)
+            else:
+                (self.params, self.opt_state, self._mstate,
+                 metrics) = self._step_fn(self.params, self.opt_state,
+                                          self._mstate, batch, self.step,
+                                          self.qcfg)
             window.push(self.step, metrics)
             self.step += 1
             at_ckpt = bool(self._ckptr) \
@@ -331,6 +455,7 @@ class Trainer:
                     or self.step % log_every == 0):
                 continue
             pending = window.drain()
+            self._guard_pass(pending)
             recovered = False
             while pending:
                 spike, consumed = self._drain(pending)

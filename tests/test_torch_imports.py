@@ -42,7 +42,9 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     assert len(files) > 15
     assert {PORT / "serve" / "pages.py", PORT / "serve" / "decode.py",
             PORT / "sweep" / "executor.py", PORT / "guard" / "policy.py",
-            PORT / "launch" / "sweep.py"} <= set(files)
+            PORT / "launch" / "sweep.py", PORT / "guard" / "monitors.py",
+            PORT / "guard" / "scenario.py",
+            PORT / "runtime" / "bridge.py"} <= set(files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _is_forbidden(m)]
     assert not bad, bad
@@ -53,7 +55,8 @@ def test_port_imports_in_a_process_without_jax():
             " repro_torch.configs, repro_torch.train, repro_torch.optim, "
             "repro_torch.launch.train, repro_torch.serve.pages, "
             "repro_torch.serve.decode, repro_torch.sweep, repro_torch.guard, "
-            "repro_torch.launch.sweep; "
+            "repro_torch.launch.sweep, repro_torch.guard.scenario, "
+            "repro_torch.runtime.bridge; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
@@ -78,6 +81,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         lm_init(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({}, cfg)
+    from repro_torch.guard import monitor_init
+    with pytest.raises(RuntimeError, match="CUDA"):
+        monitor_init()
     eng = ServeEngine(params, cfg, preset("bf16"), device="cpu")
     assert eng.device.type == "cpu"
 

@@ -138,7 +138,7 @@ _value = st.one_of(st.floats(2.0 ** -7, 8.0, width=32),
                    st.sampled_from([float("nan"), float("inf"), 1e4, 500.0]))
 
 
-@settings(max_examples=40, deadline=None)
+@settings(max_examples=40, deadline=None, derandomize=True)
 @given(st.integers(1, 4).flatmap(lambda lanes: st.tuples(
     st.just(lanes), st.lists(st.lists(_value, min_size=lanes,
                                       max_size=lanes),
@@ -257,13 +257,15 @@ def _to_torch(tree):
     return jax.tree.map(lambda a: torch.from_numpy(np.array(a)), tree)
 
 
-@pytest.mark.parametrize("name,clip", [("mxfp8_e4m3", 1.0), ("bf16", 0.0)])
+@pytest.mark.parametrize("name,clip", [
+    ("mxfp8_e4m3", 1.0), ("bf16", 0.0), ("mxfp4_e2m1", 1.0),
+    ("mxfp4_e2m1_adaptive", 0.0)])
 def test_lane_packed_proxy_steps_match_reference_vmap(name, clip):
-    """Three steps of a 3-lane pack (d 64, 2 layers, batch 64): the port's
+    """Three steps of a 2-lane pack (d 64, 2 layers, batch 64): the port's
     lane-stacked proxy_loss, its gradients and the per-lane AdamW update
     against jax.vmap of the reference's, from the reference's init and the
     same numpy batches; each lane its own peak lr."""
-    L, steps = 3, 3
+    L, steps = 2, 3
     jcfg = jproxy.ProxyConfig(d_model=64, n_layers=2, batch_size=64)
     cfg = proxy.ProxyConfig(d_model=64, n_layers=2, batch_size=64)
     jparams = jax.vmap(lambda k: jproxy.proxy_init(k, jcfg))(
@@ -271,7 +273,7 @@ def test_lane_packed_proxy_steps_match_reference_vmap(name, clip):
     opt_cfg = adamw.AdamWConfig(weight_decay=0.1, grad_clip=clip)
     jopt_cfg = jadamw.AdamWConfig(weight_decay=0.1, grad_clip=clip)
     jopt = jax.vmap(lambda p: jadamw.adamw_init(p, jopt_cfg))(jparams)
-    lrs = np.asarray([1e-3, 2e-3, 5e-4], np.float32)
+    lrs = np.asarray([1e-3, 2e-3], np.float32)
     tparams = _to_torch(jparams)
     leaves = [t.requires_grad_(True) for _, t in
               tree_leaves_with_path(tparams)]
@@ -415,10 +417,12 @@ def test_lm_run_trains_through_the_trainer():
 
 
 def test_online_guard_lm_run_and_mesh_raise():
+    # an online guard on an lm run is accepted (the Trainer's autopilot;
+    # tests/test_torch_guard.py holds a full run against the reference)
     r = sweep.RunSpec(kind="lm", guard="autopilot", steps=2, lm_size=1,
                       lm_vocab=256, lm_batch=2, lm_seq=32)
-    with pytest.raises(NotImplementedError, match="Queue A item 2"):
-        sweep.run_sweep([r], device="cpu")
+    res = sweep.run_sweep([r], device="cpu")[r.run_id]
+    assert res.steps == 2 and not res.guard_advisory
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         sweep.run_sweep([TINY], mesh=object(), device="cpu")
     from repro_torch.launch import sweep as cli
