@@ -117,6 +117,19 @@ Phases, each of which raises on failure:
                 the allocator ends empty, the prefix cache hits, the paged
                 decode kernel runs every paged decode step, and the token
                 streams agree under the margin rule.
+ 13. moe      — olmo-paper's state freed, moonshot-v1-16b-a3b at full
+                width with its depth cut to 4 layers (1 dense, 3 MoE;
+                weights from a CUDA generator): the lane GEMMs at the
+                experts' training shapes (64 lanes of 480 rows, d_model
+                2048, moe_dff 1408, bf16, E4M3) bitwise to the 2-D kernel
+                lane by lane and within gemm_check; ServeEngine with 8
+                greedy 64-token prompts x 32 tokens (all finish; 3 lane
+                GEMMs per MoE layer per prefill and decode step); teacher-
+                forced logits of the lead dense layer and one MoE layer on
+                the card against the CPU; 10 Trainer steps at 8 x 512
+                under mxfp8_e4m3 and bf16 (finite, falling losses; 3
+                forward, 3 dgrad and 3 wgrad lane GEMMs a step per MoE
+                layer) and two 3-step replays with equal bits.
 The kernel phase also holds the dgrad, wgrad and flash dgrad kernels at
 the training shapes (4096 tokens; BH 64, T 512) against their plain
 versions, with planted faults that their checks reject (dgrad with W
@@ -148,6 +161,7 @@ and as the last line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import cProfile
+import dataclasses
 import io
 import json
 import math
@@ -2090,11 +2104,13 @@ def lane_case(kind, a, b, fmt, mode, faults=False):
 
 
 def lane_bound(kind, a, b):
-    """(bound ms, bound_by) of a lane GEMM: each fp32 operand read once, the
-    fp32 output written once; bf16 tensor-core operations."""
+    """(bound ms, bound_by) of a lane GEMM: each operand read once, the
+    output (in a's dtype) written once; bf16 tensor-core operations."""
     A, Bm = lane_product(kind, a[:1], b[:1])
     L, (M, Kc), N = a.shape[0], A.shape[1:], Bm.shape[2]
-    return bound(4 * L * (M * Kc + Kc * N + M * N), 2 * L * M * N * Kc)
+    ea, eb = a.element_size(), b.element_size()
+    return bound(L * (ea * (M * Kc + M * N) + eb * Kc * N),
+                 2 * L * M * N * Kc)
 
 
 def lane_library(kind, a, b):
@@ -4072,6 +4088,351 @@ def phase_paged(params, cfg, dev: str = "cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# [moe]: moonshot-v1-16b-a3b at full width, depth cut to MOE_LAYERS
+# ---------------------------------------------------------------------------
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# The lead dense layer (first_dense 1) and 3 MoE layers: 2.52 G fp32
+# parameters, whose weights, gradients and two AdamW moments (~40 GB) fit
+# one card beside the activations at 8 x 512 tokens; the config's 48
+# layers (~28 G) would not.
+MOE_LAYERS = 4
+# The card-against-CPU parity runs the lead dense layer and one MoE layer:
+# the CPU's plain versions quantize the 163840-row head and the experts'
+# 553 M weights on every call.
+MOE_PARITY_LAYERS = 2
+MOE_B, MOE_T, MOE_STEPS = 8, 512, 10
+# Card-against-CPU logit limits of [moe]'s parity under mxfp8_e4m3 (a
+# 64-token prompt, teacher-forced, 2 layers): 1.5x the first reading, rel
+# 0.05027201 and max abs 0.60009766 on an H100 80GB HBM3 at 700 W (PERF.md
+# §6).  Both sides are deterministic.  A token whose 6th and 7th router
+# probabilities lie within the two devices' difference routes to another
+# expert on one of them (58 of 64 greedy tokens agreed there).
+MOE_LOGIT_REL = 1.5 * 0.05027201
+MOE_LOGIT_ATOL = 1.5 * 0.60009766
+
+
+def moe_config(n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH, "full"),
+                               n_layers=n_layers)
+
+
+def moe_lane_kernels(rows):
+    """Kernels 2-4 with their lane axis at the routed experts' shapes under
+    training: 64 lanes of C = 480 rows (8 x 512 tokens, top-6, capacity
+    factor 1.25), d_model 2048, moe_dff 1408, bf16 operands in E4M3 under
+    the floor rule; the forward also at the down product's shape.  Each
+    through lane_case (bitwise the 2-D kernel lane by lane, gemm_check
+    against the plain version, equal bits on a second call), timed
+    against the plain version and torch.bmm; the rows gain the cases."""
+    import torch
+    from repro_torch.core import get_format
+    cfg = moe_config(MOE_LAYERS)
+    E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_dff
+    C = 480
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").bitwise_not_
+    fmt = get_format("e4m3")
+
+    def rnd(shape, std):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(
+            torch.bfloat16)
+    cases = (("fwd up", "fwd", rnd((E, C, D), 1.0),
+              rnd((E, D, F), D ** -0.5)),
+             ("fwd down", "fwd", rnd((E, C, F), 1.0),
+              rnd((E, F, D), F ** -0.5)),
+             ("dgrad up", "dgrad", rnd((E, C, F), 1e-3),
+              rnd((E, D, F), D ** -0.5)),
+             ("wgrad up", "wgrad", rnd((E, C, D), 1.0), rnd((E, C, F), 1e-3)))
+    card = torch.cuda.get_device_name(0)
+    for label, kind, a, b in cases:
+        name = dict(zip(("fwd", "dgrad", "wgrad"), LANE_KERNELS))[kind]
+        c = lane_case(kind, a, b, fmt, "floor")
+        ok = c["bitwise_2d"] and c["replay"] and c["worst"] <= 1.0
+        print(f"[moe] {'ok  ' if ok else 'FAIL'} {label} {name} "
+              f"{json.dumps(c)}", flush=True)
+        if not ok:
+            raise AssertionError(f"moe {label} {name}: bitwise "
+                                 f"{c['bitwise_2d']}, replay {c['replay']}, "
+                                 f"worst err/tol {c['worst']}")
+        fn, _, plain, _ = lane_fns(kind)
+        events0 = EVENT_TIMED[0]
+        entry = {"case": f"moe {label} L{E} {tuple(a.shape)}x"
+                         f"{tuple(b.shape)} bf16 e4m3 floor",
+                 "max_abs_err": c["max_abs_err"],
+                 "ms": time_ms(lambda: fn(a, b, fmt, fmt), 10, flush),
+                 "plain_ms": time_ms(lambda: plain(a, b, fmt, fmt), 3,
+                                     flush),
+                 "library_ms": time_ms(lane_library(kind, a, b), 10, flush),
+                 "splits": c["splits"], "card": card}
+        entry["bound_ms"], entry["bound_by"] = lane_bound(kind, a, b)
+        entry["timing"] = ("events" if EVENT_TIMED[0] > events0
+                           else "profiler")
+        print(f"[moe] {name} {json.dumps(entry)}", flush=True)
+        rows[name]["cases"].append(entry)
+        del a, b
+    torch.cuda.empty_cache()
+
+
+def _lane_launches(counts):
+    return {k: counts.get(k, 0) for k in LANE_KERNELS}
+
+
+def _peak_reset(dev):
+    import torch
+    _sync(dev)
+    if torch.device(dev).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev) -> int:
+    import torch
+    if torch.device(dev).type == "cuda":
+        return torch.cuda.max_memory_allocated()
+    return 0
+
+
+def _free(dev):
+    """Collect what the caller dropped (cycles too) and return the
+    allocator's free blocks to the card."""
+    import gc
+    import torch
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def moe_serve(params, cfg, dev: str = "cuda"):
+    """ServeEngine (max_batch 4) on 8 greedy 64-token prompts, 32 new
+    tokens each, under mxfp8_e4m3: every request finishes, the lane GEMM
+    runs 3 times per MoE layer in a prefill and in a decode step (up,
+    gate, down), and the routed experts' dropped share is printed.
+    Returns the launch counts of the engine's run."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.kernels import ops
+    from repro_torch.models import (init_cache, lm_decode_step, lm_prefill,
+                                    moe)
+    from repro_torch.serve import SamplingParams, ServeEngine
+
+    qcfg = preset("mxfp8_e4m3")
+    n_moe = sum("moe" in lp for lp in params["layers"])
+    eng = ServeEngine(params, cfg, qcfg, max_batch=4, max_len=128,
+                      device=dev)
+    rng = np.random.default_rng(SEED + 3)
+    for _ in range(8):
+        eng.submit(rng.integers(1, cfg.vocab, 64).astype(np.int32),
+                   SamplingParams(max_new_tokens=32))
+    _peak_reset(dev)
+    moe.reset_routing()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.drain()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    dropped = float(moe.ROUTING["dropped"]) / moe.ROUTING["assignments"]
+    st = eng.stats()
+    if len(done) != 8 or any(len(r.tokens) != 32 for r in done):
+        raise AssertionError(f"moe serve: {len(done)} of 8 requests, "
+                             f"{[len(r.tokens) for r in done]} tokens")
+    per = {}
+    with torch.inference_mode():
+        ops.reset_launches()
+        lm_prefill(eng.params, torch.ones((1, 64), dtype=torch.long,
+                                          device=dev), cfg, qcfg, 128)
+        per["prefill"] = dict(ops.LAUNCHES)
+        cache = init_cache(cfg, 4, 128, dev)
+        ops.reset_launches()
+        lm_decode_step(eng.params, cache, torch.ones((4, 1), dtype=torch.long,
+                                                     device=dev),
+                       torch.tensor([3, 4, 5, 6], device=dev), cfg, qcfg)
+        per["decode_step"] = dict(ops.LAUNCHES)
+    rec = {"requests": len(done), "wall_s": wall,
+           "prefill_tok_s": st["prefill_tok_s"],
+           "decode_tok_s": st["decode_tok_s"],
+           "decode_steps": st["decode_steps"], "dropped_frac": dropped,
+           "max_memory_allocated": _peak(dev),
+           "lane_launches_per_prefill": _lane_launches(per["prefill"]),
+           "lane_launches_per_decode_step":
+               _lane_launches(per["decode_step"]),
+           "launches": counts}
+    print(f"[moe] serve mxfp8_e4m3: {json.dumps(rec)}", flush=True)
+    for call, c in per.items():
+        if dev == "cuda" and c["mx_matmul_lanes"] != 3 * n_moe:
+            raise AssertionError(f"moe {call}: {c['mx_matmul_lanes']} lane "
+                                 f"GEMMs, expected {3 * n_moe}")
+    idle = sorted(k for k in ("mx_quantize", "mx_matmul", "mx_matmul_lanes",
+                              "mx_flash_attention", "mx_attention_decode")
+                  if counts[k] == 0)
+    if idle and dev == "cuda":
+        raise AssertionError(f"moe serve: kernels never launched: {idle}")
+    del eng
+    _free(dev)
+    return counts
+
+
+def moe_parity(params, cfg, devs=("cuda", "cpu")):
+    """Teacher-forced logits of one 64-token prompt through the lead dense
+    layer and the first MoE layer, on the card (kernels) and on the CPU
+    (plain versions), same bf16 serving weights, under mxfp8_e4m3."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import lm_apply, tree_map
+    from repro_torch.models.layers import qdense
+    from repro_torch.serve import serving_params
+
+    cfg = dataclasses.replace(cfg, n_layers=MOE_PARITY_LAYERS)
+    cut = {k: v for k, v in params.items() if k != "layers"}
+    cut["layers"] = params["layers"][:MOE_PARITY_LAYERS]
+    qcfg = preset("mxfp8_e4m3")
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 4).integers(
+        1, cfg.vocab, (1, 64)))
+    logits, secs = {}, {}
+    with torch.inference_mode():
+        for dev in devs:
+            p = serving_params(tree_map(lambda t: t.to(dev), cut), dev)
+            t0 = time.perf_counter()
+            h, _ = lm_apply(p, {"tokens": prompt.to(dev)}, cfg, qcfg)
+            logits[dev] = qdense(p["lm_head"], h, qcfg)[0].float().cpu()
+            secs[dev] = time.perf_counter() - t0
+            del p, h
+    a, b = logits[devs[0]], logits[devs[1]]
+    rel = (torch.linalg.norm(a - b) / torch.linalg.norm(b)).item()
+    err_rows = (a - b).abs().amax(-1)
+    rec = {"layers": MOE_PARITY_LAYERS, "positions": a.shape[0],
+           "rel_fro": rel, "max_abs_err": err_rows.max().item(),
+           "median_row_max_abs_err": err_rows.median().item(),
+           "argmax_agree": int((a.argmax(-1) == b.argmax(-1)).sum()),
+           "seconds": secs,
+           "limits": {"rel_fro": MOE_LOGIT_REL,
+                      "max_abs_err": MOE_LOGIT_ATOL}}
+    ok = rel <= MOE_LOGIT_REL and rec["max_abs_err"] <= MOE_LOGIT_ATOL
+    print(f"[moe] {'ok  ' if ok else 'FAIL'} parity mxfp8_e4m3: "
+          f"{json.dumps(rec)}", flush=True)
+    if not ok:
+        raise AssertionError("moe: card and CPU logits disagree")
+    _free(devs[0])
+    return rec
+
+
+def _bits(tree):
+    """A digest of every leaf's bits (the sum of its int32 words)."""
+    import torch
+    from repro_torch.core.diagnostics import tree_leaves_with_path
+    return [int(t.detach().view(torch.int32).to(torch.int64).sum())
+            for _, t in tree_leaves_with_path(tree)]
+
+
+def moe_train(params, cfg, dev: str = "cuda", B: int = MOE_B,
+              T: int = MOE_T, steps: int = MOE_STEPS):
+    """The Trainer at 8 x 512 for MOE_STEPS AdamW steps under mxfp8_e4m3
+    and bf16 from one host copy of the weights: loss finite and falling by
+    [train]'s rule, aux_loss in the history, under mxfp8_e4m3 3 forward,
+    3 dgrad and 3 wgrad lane GEMMs a step per MoE layer; two 3-step runs
+    from the same state give equal losses and equal bits in every
+    parameter and moment (a float atomic in the dispatch's backward would
+    not).  Returns the mxfp8_e4m3 run's launch counts."""
+    from repro_torch.core import preset
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_loss
+    from repro_torch.train import Trainer, TrainerConfig
+
+    n_moe = sum("moe" in lp for lp in params["layers"])
+
+    def trainer(name, total):
+        return Trainer(lambda pp, b, q: lm_loss(pp, b, cfg, q),
+                       _fresh(params, dev), preset(name),
+                       lambda s: lm_batch(s, cfg.vocab, B, T, SEED,
+                                          device=dev),
+                       tcfg=TrainerConfig(total_steps=total, peak_lr=1e-3,
+                                          log_every=1))
+
+    out = {}
+    for name in ("mxfp8_e4m3", "bf16"):
+        tr = trainer(name, steps)
+        _peak_reset(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist = tr.run(steps)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        losses = [h["loss"] for h in hist]
+        times = [h["time_s"] for h in hist]
+        step_s = sorted(times[1:])[len(times[1:]) // 2]
+        per_step = {k: v / steps for k, v in counts.items()}
+        rec = {"steps": steps, "batch": B, "seq": T,
+               "losses": losses, "aux_loss": [h["aux_loss"] for h in hist],
+               "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
+               "tokens_per_s": B * T / step_s, "wall_s": wall,
+               "max_memory_allocated": _peak(dev),
+               "launches_per_step": per_step}
+        print(f"[moe] train {name}: {json.dumps(rec)}", flush=True)
+        del tr
+        _free(dev)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"moe {name}: non-finite loss {losses}")
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        if not last < first:
+            raise AssertionError(f"moe {name}: loss did not fall (first 5 "
+                                 f"{first}, last 5 {last})")
+        if name == "mxfp8_e4m3" and dev == "cuda":
+            want = {k: 3 * n_moe for k in LANE_KERNELS}
+            got = {k: per_step.get(k, 0) for k in LANE_KERNELS}
+            if got != want:
+                raise AssertionError(f"moe {name}: lane GEMMs per step "
+                                     f"{got}, expected {want}")
+        if name == "mxfp8_e4m3":
+            out["counts"] = counts
+        runs = []
+        for _ in range(2):
+            rt = trainer(name, 3)
+            runs.append(([h["loss"] for h in rt.run(3)],
+                         _bits({"params": rt.params, "opt": rt.opt_state})))
+            del rt
+            _free(dev)
+        same = runs[0] == runs[1]
+        print(f"[moe] train {name} replay: losses {runs[0][0]} / "
+              f"{runs[1][0]}, bits equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"moe {name}: replays differ")
+        out[name] = rec
+    return out
+
+
+def phase_moe(rows):
+    """[moe]: the lane kernels at the experts' shapes, then
+    moonshot-v1-16b-a3b at full width and MOE_LAYERS layers, weights drawn
+    on a CUDA generator: serving, card-against-CPU parity, training.
+    Returns the launch counts of the serve and train runs."""
+    import torch
+    from repro_torch.core.diagnostics import tree_leaves_with_path
+    from repro_torch.models import lm_init, tree_map
+
+    moe_lane_kernels(rows)
+    cfg = moe_config(MOE_LAYERS)
+    t0 = time.perf_counter()
+    params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                     "cuda")
+    n = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    print(f"[moe] {cfg.name} {cfg.n_layers} layers: {n} parameters, "
+          f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    serve = moe_serve(params, cfg)
+    moe_parity(params, cfg)
+    # The trainers draw fresh copies from the host: the card holds one
+    # model's weights, gradients and moments at a time.
+    params = tree_map(lambda t: t.cpu(), params)
+    torch.cuda.empty_cache()
+    train = moe_train(params, cfg)
+    return {"serve": serve, "train": train["counts"]}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         fail("run from a checkout: src/repro_torch is missing beside this "
@@ -4107,6 +4468,9 @@ def main() -> int:
     phase_sweep_parity()
     paged_parity = phase_paged_parity(params, cfg)
     paged = phase_paged(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    moe = phase_moe(rows)
 
     # "launches": each kernel's count over the run of its own path under
     # mxfp8_e4m3, counts set to 0 just before it (serving for the slice-1
@@ -4114,7 +4478,9 @@ def main() -> int:
     # engine's bursty trace for the paged decode kernel, the fig6 sweep at
     # full budget for the lane kernels); "launches_guard" and
     # "launches_snapshot" over the [guard] autopilot's 80 steps and the
-    # [snapshot] engines' serving.
+    # [snapshot] engines' serving; "launches_moe_serve" and
+    # "launches_moe_train" over [moe]'s serving and its 10 mxfp8_e4m3
+    # training steps.
     serve_path = ("mx_quantize", "mx_matmul", "mx_flash_attention",
                   "mx_attention_decode")
     train_counts = train["mxfp8_e4m3"]["counts"]
@@ -4140,6 +4506,8 @@ def main() -> int:
             "launches_paged": paged_counts[name],
             "launches_guard": guard_counts[name],
             "launches_snapshot": snapshot_counts[name],
+            "launches_moe_serve": moe["serve"][name],
+            "launches_moe_train": moe["train"][name],
             "launches_per_prefill": per_prefill[name],
             "launches_per_decode_step": per_decode[name],
             "launches_per_paged_decode_step": per_paged[name],

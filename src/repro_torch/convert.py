@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.devices import resolve_device
 from repro_torch.models import LMConfig, block_plan, check_supported
+from repro_torch.models.mlp import GATED
 
 __all__ = ["params_from_jax", "params_to_jax", "param_shapes",
            "lm_checkpoint_layout"]
@@ -34,34 +35,65 @@ _BF16 = "BF16::"
 _KEY = re.compile(r"\[(?:'([^']*)'|(\d+))\]")
 
 
-def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
-    """The port's parameter tree with shapes as leaves (one block shown
-    under "layer"; every layer has the same)."""
-    D, H, Hkv, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-                        cfg.d_ff)
+def _dense(i, o):
+    return {"w": (i, o)}
 
-    def dense(i, o):
-        return {"w": (i, o)}
 
-    def norm(d, kind):
-        return {"scale": (d,), **({"bias": (d,)} if kind == "layernorm"
-                                  else {})}
+def _norm(d, kind):
+    return {"scale": (d,), **({"bias": (d,)} if kind == "layernorm"
+                              else {})}
 
-    attn = {"wq": dense(D, H * dh), "wk": dense(D, Hkv * dh),
-            "wv": dense(D, Hkv * dh), "wo": dense(H * dh, D)}
+
+def _mlp(cfg: LMConfig, width: int):
+    p = {"w_up": _dense(cfg.d_model, width),
+         "w_down": _dense(width, cfg.d_model)}
+    if cfg.act in GATED:
+        p["w_gate"] = _dense(cfg.d_model, width)
+    return p
+
+
+def _block_shapes(cfg: LMConfig, kind: str = "attn") -> Dict[str, Any]:
+    """One block's parameter tree with shapes as leaves: a dense block, or
+    on an MoE config's ``"attn"`` layers the routed experts (``moe``) and
+    the shared ones (``shared``)."""
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    attn = {"wq": _dense(D, H * dh), "wk": _dense(D, Hkv * dh),
+            "wv": _dense(D, Hkv * dh), "wo": _dense(H * dh, D)}
     if cfg.qkv_bias:
         for name, width in (("wq", H * dh), ("wk", Hkv * dh),
                             ("wv", Hkv * dh)):
             attn[name]["b"] = (width,)
     if cfg.qk_norm:
-        attn["q_norm"] = norm(dh, "rmsnorm")
-        attn["k_norm"] = norm(dh, "rmsnorm")
-    return {"embed": {"table": (cfg.vocab, D)},
-            "layer": {"ln1": norm(D, cfg.norm), "ln2": norm(D, cfg.norm),
-                      "attn": attn,
-                      "mlp": {"w_up": dense(D, F), "w_down": dense(F, D)}},
-            "final_ln": norm(D, cfg.norm),
-            "lm_head": {"w": (D, cfg.vocab)}}
+        attn["q_norm"] = _norm(dh, "rmsnorm")
+        attn["k_norm"] = _norm(dh, "rmsnorm")
+    block = {"ln1": _norm(D, cfg.norm), "ln2": _norm(D, cfg.norm),
+             "attn": attn}
+    if cfg.n_experts and kind == "attn":
+        E, F = cfg.n_experts, cfg.moe_dff
+        block["moe"] = {"router": (D, E), "w_up": (E, D, F),
+                        "w_down": (E, F, D)}
+        if cfg.act in GATED:
+            block["moe"]["w_gate"] = (E, D, F)
+        if cfg.n_shared:
+            block["shared"] = _mlp(cfg, cfg.n_shared * F)
+    else:
+        block["mlp"] = _mlp(cfg, cfg.d_ff)
+    return block
+
+
+def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
+    """The port's parameter tree with shapes as leaves, one block of each
+    kind: "layer" is the stack's repeated block, and an MoE config with
+    leading dense layers adds "dense_layer"."""
+    out = {"embed": {"table": (cfg.vocab, cfg.d_model)},
+           "layer": _block_shapes(cfg),
+           "final_ln": _norm(cfg.d_model, cfg.norm),
+           "lm_head": {"w": (cfg.d_model, cfg.vocab)}}
+    if any(k == "dense_attn" for pattern, _ in block_plan(cfg)
+           for k in pattern):
+        out["dense_layer"] = _block_shapes(cfg, "dense_attn")
+    return out
 
 
 def _leaves(tree, prefix=()):
@@ -134,8 +166,8 @@ def params_from_jax(tree_or_npz, cfg: LMConfig, device=None) -> dict:
     layers = []
     for g, (pattern, n_rep) in enumerate(block_plan(cfg)):
         group = [dict() for _ in range(n_rep * len(pattern))]
-        for j in range(len(pattern)):
-            for sub, shape in _leaves(shapes["layer"]):
+        for j, kind in enumerate(pattern):
+            for sub, shape in _leaves(_block_shapes(cfg, kind)):
                 stacked = take(("blocks", g, f"b{j}") + sub,
                                (n_rep,) + tuple(shape))
                 for r in range(n_rep):

@@ -437,8 +437,8 @@ def mx_matmul_lanes(a: torch.Tensor, b: torch.Tensor,
     if M <= FWD_SMALL_M:
         raise NotImplementedError(
             f"mx_matmul_lanes: M = {M}: the small-M forward kernel has no "
-            "lane axis; lane GEMMs at so few rows come with ROADMAP Queue A "
-            "item 4 (MoE experts)")
+            "lane axis; lane GEMMs at so few rows are ROADMAP Queue A item 4 "
+            "(no caller needs them: MoE expert lanes hold >= 32 rows)")
     if not a.is_cuda:
         return ref.mx_matmul_lanes_ref(a, b, fmt_a, fmt_b, block, scale_mode)
     is_fp32 = _check_gemm("mx_matmul_lanes", a, b, fmt_a, fmt_b, block,

@@ -2,14 +2,15 @@
 ``repro.models``)."""
 from .proxy import (ProxyConfig, proxy_apply, proxy_batch, proxy_init,
                     proxy_loss, stack_lanes, teacher_init, unstack_lanes)
-from .transformer import (LMConfig, block_plan, check_supported, init_cache,
-                          init_cache_paged, lm_apply, lm_decode_step,
-                          lm_init, lm_loss, lm_prefill, lm_prefill_chunk,
-                          prefill_supported, tree_map)
+from .transformer import (LMConfig, block_plan, check_supported,
+                          chunk_supported, init_cache, init_cache_paged,
+                          lm_apply, lm_decode_step, lm_init, lm_loss,
+                          lm_prefill, lm_prefill_chunk, prefill_supported,
+                          tree_map)
 
-__all__ = ["LMConfig", "block_plan", "check_supported", "init_cache",
-           "init_cache_paged", "lm_apply", "lm_decode_step", "lm_init",
-           "lm_loss", "lm_prefill", "lm_prefill_chunk", "prefill_supported",
-           "tree_map", "ProxyConfig", "proxy_apply", "proxy_batch",
-           "proxy_init", "proxy_loss", "teacher_init", "stack_lanes",
-           "unstack_lanes"]
+__all__ = ["LMConfig", "block_plan", "check_supported", "chunk_supported",
+           "init_cache", "init_cache_paged", "lm_apply",
+           "lm_decode_step", "lm_init", "lm_loss", "lm_prefill",
+           "lm_prefill_chunk", "prefill_supported", "tree_map", "ProxyConfig",
+           "proxy_apply", "proxy_batch", "proxy_init", "proxy_loss",
+           "teacher_init", "stack_lanes", "unstack_lanes"]

@@ -1,14 +1,17 @@
 """Decoder LM assembly: training forward and loss, prefill and decode.
 
-Counterpart of ``repro.models.transformer`` for dense ``"attn"`` blocks.
-Parameters are a plain dict with per-layer entries:
+Counterpart of ``repro.models.transformer`` for ``"attn"`` blocks, dense
+or MoE.  Parameters are a plain dict with per-layer entries:
 
     {"embed": {"table"}, "layers": [block, ...], "final_ln": {...},
      "lm_head": {"w"}}
 
 where each ``block`` has the reference's per-block names (``ln1``, ``attn``,
-``ln2``, ``mlp``).  Layer ``i`` is the reference's stacked group entry
-``blocks[g]["b{j}"][r]`` in plan order (see ``convert.params_from_jax``).
+``ln2``, and ``mlp``, or on an MoE layer ``moe`` and ``shared``).  An MoE
+config's first ``first_dense`` layers are dense (the reference's leading
+``"dense_attn"`` group).  Layer ``i`` is the reference's stacked group
+entry ``blocks[g]["b{j}"][r]`` in plan order (see
+``convert.params_from_jax``).
 The decode cache is a list with one ``{"k", "v"}`` dict of
 (B, S, Hkv, d) bf16 tensors per layer, updated in place; the paged cache
 (``init_cache_paged``) is the same list of (N, ps, Hkv, d) page pools,
@@ -16,9 +19,10 @@ addressed through one (B, P) page table.  Layers run as a
 Python loop over that list; the reference's activation checkpointing
 (``remat``) is not ported yet: at olmo-paper's size the activations fit.
 
-MoE, MLA, recurrent, xLSTM, windowed, encoder-decoder and frontend configs
-raise ``NotImplementedError``: they come with a later slice of the port
-(ROADMAP Queue A item 4).
+MLA, recurrent, xLSTM, windowed, encoder-decoder, frontend and
+tied-embedding configs raise ``NotImplementedError``: they come with a
+later slice of the port (ROADMAP Queue A item 4).  MoE configs prefill
+whole: ``lm_prefill_chunk`` raises for them (``chunk_supported``).
 """
 from __future__ import annotations
 
@@ -36,10 +40,17 @@ from .attention import (attention, attention_decode, attention_decode_paged,
 from .layers import (apply_norm, dense_init, embed_init, embed_lookup,
                      norm_init, qdense)
 from .mlp import mlp_apply, mlp_init
+from .moe import moe_apply, moe_init
 
 __all__ = ["LMConfig", "block_plan", "lm_init", "lm_apply", "lm_loss",
            "init_cache", "lm_prefill", "lm_decode_step", "prefill_supported",
-           "check_supported", "init_cache_paged", "lm_prefill_chunk"]
+           "chunk_supported", "check_supported", "init_cache_paged",
+           "lm_prefill_chunk"]
+
+#: The capacity factor of MoE routing in prefill and decode (the
+#: reference's serving value: the training capacity would drop prompt
+#: tokens that per-step decode never drops).
+SERVE_CAPACITY = 4.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +105,6 @@ class LMConfig:
 def check_supported(cfg: LMConfig) -> None:
     """Raise for configs outside this slice of the port."""
     later = []
-    if cfg.n_experts:
-        later.append("MoE")
     if cfg.mla:
         later.append("MLA")
     if set(cfg.block_pattern) != {"attn"}:
@@ -109,16 +118,22 @@ def check_supported(cfg: LMConfig) -> None:
     if later:
         raise NotImplementedError(
             f"config {cfg.name!r} needs {', '.join(later)}: the port serves "
-            "dense 'attn' stacks; the other architectures come with the "
-            "later slice that ports MoE, MLA and the recurrent blocks "
+            "'attn' stacks, dense or MoE; the other architectures come with "
+            "the later slice that ports MLA and the recurrent blocks "
             "(ROADMAP Queue A item 4)")
 
 
 def block_plan(cfg: LMConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    """The reference's scan groups: (pattern, n_rep) in layer order."""
+    """The reference's scan groups: (pattern, n_rep) in layer order; an
+    MoE config's leading dense layers are a ``("dense_attn",)`` group."""
     pat = tuple(cfg.block_pattern)
-    n_rep, tail = divmod(cfg.n_layers, len(pat))
+    n_layers = cfg.n_layers
     groups = []
+    lead = cfg.first_dense if cfg.n_experts else 0
+    if lead:
+        groups.append((("dense_attn",), lead))
+        n_layers -= lead
+    n_rep, tail = divmod(n_layers, len(pat))
     if n_rep:
         groups.append((pat, n_rep))
     if tail:
@@ -126,9 +141,43 @@ def block_plan(cfg: LMConfig) -> List[Tuple[Tuple[str, ...], int]]:
     return groups
 
 
+def _layer_kinds(cfg: LMConfig) -> List[str]:
+    """Each layer's block kind, in the order of ``params["layers"]``."""
+    return [kind for pattern, n_rep in block_plan(cfg)
+            for _ in range(n_rep) for kind in pattern]
+
+
 def prefill_supported(cfg: LMConfig) -> bool:
     """Whether ``lm_prefill`` covers this config (decoder-only stacks)."""
     return cfg.enc_layers == 0 and cfg.frontend == "none"
+
+
+def chunk_supported(cfg: LMConfig) -> bool:
+    """Whether ``lm_prefill_chunk`` covers this config: a pure global-
+    attention decoder stack.  MoE configs prefill whole: their routing is
+    batch-level, so a prefix is not an append-only K/V sequence."""
+    return (prefill_supported(cfg) and not cfg.mla and cfg.window == 0
+            and cfg.n_experts == 0 and cfg.d_rnn == 0
+            and set(cfg.block_pattern) <= {"attn"})
+
+
+def _block_init(generator: torch.Generator, kind: str, cfg: LMConfig):
+    L = cfg.n_layers
+    gd = generator.device
+    p = {"ln1": norm_init(cfg.d_model, cfg.norm, gd),
+         "ln2": norm_init(cfg.d_model, cfg.norm, gd),
+         "attn": attn_init(generator, cfg.d_model, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
+                           cfg.qkv_bias, L)}
+    if cfg.n_experts and kind == "attn":
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.moe_dff,
+                            cfg.n_experts, cfg.act, L)
+        if cfg.n_shared:
+            p["shared"] = mlp_init(generator, cfg.d_model,
+                                   cfg.n_shared * cfg.moe_dff, cfg.act, L)
+    else:
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, L)
+    return p
 
 
 def lm_init(cfg: LMConfig, generator: torch.Generator, device=None
@@ -138,19 +187,10 @@ def lm_init(cfg: LMConfig, generator: torch.Generator, device=None
     on ``generator.device`` and moved to ``device`` (default ``cuda``)."""
     check_supported(cfg)
     device = resolve_device(device)
-    L = cfg.n_layers
     gd = generator.device
     params = {"embed": embed_init(generator, cfg.vocab, cfg.d_model),
-              "layers": []}
-    for _ in range(L):
-        params["layers"].append({
-            "ln1": norm_init(cfg.d_model, cfg.norm, gd),
-            "ln2": norm_init(cfg.d_model, cfg.norm, gd),
-            "attn": attn_init(generator, cfg.d_model, cfg.n_heads,
-                              cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
-                              cfg.qkv_bias, L),
-            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, L),
-        })
+              "layers": [_block_init(generator, kind, cfg)
+                         for kind in _layer_kinds(cfg)]}
     params["final_ln"] = norm_init(cfg.d_model, cfg.norm, gd)
     params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
                                    std=1.0 / math.sqrt(cfg.d_model))
@@ -189,30 +229,45 @@ def init_cache_paged(cfg: LMConfig, n_pages: int, page_size: int,
             for _ in range(cfg.n_layers)]
 
 
-def _block_rest(h, lp, cfg: LMConfig, qcfg: QuantConfig, a):
+def _block_rest(h, lp, cfg: LMConfig, qcfg: QuantConfig, a,
+                capacity_factor: float):
+    """The residual, norm and feed-forward after attention output ``a``.
+    Returns (h, the MoE auxiliary loss or None on a dense layer)."""
     h = h + a
     hn2 = apply_norm(lp["ln2"], h, qcfg, cfg.norm)
-    return h + mlp_apply(lp["mlp"], hn2, qcfg, cfg.act)
+    if "moe" not in lp:
+        return h + mlp_apply(lp["mlp"], hn2, qcfg, cfg.act), None
+    y, metrics = moe_apply(lp["moe"], hn2.reshape(-1, hn2.shape[-1]), qcfg,
+                           top_k=cfg.top_k, act=cfg.act,
+                           capacity_factor=capacity_factor)
+    y = y.reshape(hn2.shape)
+    if "shared" in lp:
+        y = y + mlp_apply(lp["shared"], hn2, qcfg, cfg.act)
+    return h + y, metrics["aux_loss"]
 
 
 def lm_apply(params, batch, cfg: LMConfig, qcfg: QuantConfig):
     """Forward to the final hidden states (B, T, D) in bf16.  Returns
-    (hidden, aux_loss); dense blocks have no auxiliary loss (0)."""
+    (hidden, aux_loss): the MoE layers' load-balance losses summed (0 for
+    a dense stack)."""
     check_supported(cfg)
     tok = batch["tokens"]
     B, T = tok.shape
     h = embed_lookup(params["embed"], tok)
     positions = torch.arange(T, device=tok.device)[None].expand(B, T)
     spec = cfg.attn_spec()
+    aux = torch.zeros((), dtype=torch.float32, device=tok.device)
     for lp in params["layers"]:
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
         a = attention(lp["attn"], hn, qcfg=qcfg, n_heads=cfg.n_heads,
                       n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
                       positions=positions, spec=spec,
                       rope_theta=cfg.rope_theta)
-        h = _block_rest(h, lp, cfg, qcfg, a)
+        h, la = _block_rest(h, lp, cfg, qcfg, a, cfg.capacity_factor)
+        if la is not None:
+            aux = aux + la
     h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
-    return h, torch.zeros((), dtype=torch.float32, device=tok.device)
+    return h, aux
 
 
 def lm_loss(params, batch, cfg: LMConfig, qcfg: QuantConfig):
@@ -262,7 +317,7 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
                                  n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                                  d_head=cfg.d_head, positions=positions,
                                  spec=spec, rope_theta=cfg.rope_theta)
-        h = _block_rest(h, lp, cfg, qcfg, a)
+        h, _ = _block_rest(h, lp, cfg, qcfg, a, SERVE_CAPACITY)
         caches.append(c)
     h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
     if logit_positions is None:
@@ -283,8 +338,14 @@ def lm_prefill_chunk(params, tokens: torch.Tensor, prior: List[dict],
     ``logit_positions``, default C-1, and the per-layer list of the chunk's
     (B, C, Hkv, d) K/V for the caller to write into pages).  ``kv_mask``
     (B, C) zeroes padded tail K/V, so a fixed chunk shape can carry a
-    shorter last chunk."""
+    shorter last chunk.  Raises for configs outside ``chunk_supported``."""
     check_supported(cfg)
+    if not chunk_supported(cfg):
+        raise NotImplementedError(
+            f"config {cfg.name!r}: chunked prefill covers pure global-"
+            "attention decoder stacks; MoE configs prefill whole, and the "
+            "paged cache's whole-prompt path (pagify) comes with ROADMAP "
+            "Queue A item 4")
     B, C = tokens.shape
     h = embed_lookup(params["embed"], tokens)
     positions = torch.arange(start, start + C,
@@ -297,7 +358,7 @@ def lm_prefill_chunk(params, tokens: torch.Tensor, prior: List[dict],
             lp["attn"], hn, lc["k"], lc["v"], qcfg=qcfg, n_heads=cfg.n_heads,
             n_kv=cfg.n_kv_heads, d_head=cfg.d_head, positions=positions,
             spec=spec, kv_mask=kv_mask, rope_theta=cfg.rope_theta)
-        h = _block_rest(h, lp, cfg, qcfg, a)
+        h, _ = _block_rest(h, lp, cfg, qcfg, a, SERVE_CAPACITY)
         chunk.append({"k": ck, "v": cv})
     h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
     if logit_positions is None:
@@ -335,6 +396,6 @@ def lm_decode_step(params, cache: List[dict], tok: torch.Tensor,
     for lp, lc in zip(params["layers"], cache):
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
         a, _ = decode(lp["attn"], hn, lc, **kw)
-        h = _block_rest(h, lp, cfg, qcfg, a)
+        h, _ = _block_rest(h, lp, cfg, qcfg, a, SERVE_CAPACITY)
     h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
     return qdense(params["lm_head"], h[:, 0], qcfg), cache

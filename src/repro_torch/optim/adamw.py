@@ -81,13 +81,21 @@ def _per_lane(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (x.ndim - v.ndim))
 
 
+def _clip_scale(tree, max_norm: float, lanes: bool = False):
+    """(min(1, max_norm / max(norm, 1e-12)), norm) of the global norm."""
+    gn = global_norm(tree, lanes)
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0), gn
+
+
+def _scaled(x: torch.Tensor, scale) -> torch.Tensor:
+    return (x.to(torch.float32) * _per_lane(scale, x)).to(x.dtype)
+
+
 def clip_by_global_norm(tree, max_norm: float, lanes: bool = False):
     """(tree scaled by min(1, max_norm / max(norm, 1e-12)), norm); with
     ``lanes`` each lane by its own norm."""
-    gn = global_norm(tree, lanes)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    return _map(lambda x: (x.to(torch.float32) * _per_lane(scale, x)
-                           ).to(x.dtype), tree), gn
+    scale, gn = _clip_scale(tree, max_norm, lanes)
+    return _map(lambda x: _scaled(x, scale), tree), gn
 
 
 def _lr(lr, device) -> torch.Tensor:
@@ -120,8 +128,11 @@ def adamw_update(grads, state, params, lr, cfg: AdamWConfig,
     ``lanes`` also (L,)).  Returns (params, state, {"grad_norm": 0-d
     tensor, or (L,) with ``lanes``})."""
     grads = _map(lambda g: g.to(torch.float32), grads)
+    # the clip's scale is applied leaf by leaf in the loop below, so no
+    # second copy of every gradient is held at once
+    scale = None
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, lanes)
+        scale, gnorm = _clip_scale(grads, cfg.grad_clip, lanes)
     else:
         gnorm = global_norm(grads, lanes)
     state["count"].add_(1)
@@ -133,6 +144,8 @@ def adamw_update(grads, state, params, lr, cfg: AdamWConfig,
     for p, r, m, v, g in zip(_leaves(params), _leaves(ref),
                              _leaves(state["m"]), _leaves(state["v"]),
                              _leaves(grads)):
+        if scale is not None:
+            g = _scaled(g, scale)
         m.copy_(_mxq_moment(cfg.b1 * m + (1 - cfg.b1) * g, cfg.moment_fmt))
         v.copy_(_mxq_moment(cfg.b2 * v + (1 - cfg.b2) * g * g,
                             cfg.moment_fmt))

@@ -42,9 +42,9 @@ import torch
 
 from repro_torch.core import QuantConfig
 from repro_torch.devices import resolve_device
-from repro_torch.models import (LMConfig, check_supported, init_cache,
-                                init_cache_paged, lm_decode_step, lm_prefill,
-                                lm_prefill_chunk)
+from repro_torch.models import (LMConfig, check_supported, chunk_supported,
+                                init_cache, init_cache_paged, lm_decode_step,
+                                lm_prefill, lm_prefill_chunk)
 from repro_torch.runtime import Journal, MemoryLedger
 from .pages import PageAllocator, gather_prior, prefix_chain, \
     write_chunk_pages, zero_pages
@@ -60,13 +60,19 @@ def _bucket(n: int) -> int:
     return b
 
 
+#: Leaves held in bf16 for serving: weight matrices, the embedding table
+#: and the stacked expert weights (the MoE router stays fp32).
+_BF16_LEAVES = ("w", "table", "w_up", "w_gate", "w_down")
+
+
 def serving_params(params, device) -> dict:
-    """``params`` on ``device`` with every weight matrix and the embedding
-    table held in bf16, once.  ``qdense`` and ``embed_lookup`` use them in
-    bf16 anyway, so the numbers are the same; norm scales stay fp32."""
+    """``params`` on ``device`` with every weight matrix, the stacked
+    expert weights and the embedding table held in bf16, once.  ``qdense``,
+    ``moe_apply`` and ``embed_lookup`` use them in bf16 anyway, so the
+    numbers are the same; norm scales and the router stay fp32."""
     def leaf(path, t):
         t = t.to(device)
-        return t.to(torch.bfloat16) if path in ("w", "table") else t
+        return t.to(torch.bfloat16) if path in _BF16_LEAVES else t
 
     def walk(tree, key=""):
         if isinstance(tree, dict):
@@ -92,8 +98,9 @@ class ServeEngine:
         self.qcfg = qcfg
         self.max_len = max_len
         # Bucketing is causally inert for the purely positional caches of
-        # the ported (global attention) stacks.
-        self.pad_safe = bucket_prompts
+        # the ported (global attention) stacks, but not under MoE, where
+        # padded tokens would take expert capacity from real ones.
+        self.pad_safe = bucket_prompts and cfg.n_experts == 0
         self.sched = Scheduler(max_batch, max_len, eos_id)
         self.cache = self._init_cache()
         self.events = Journal()
@@ -288,9 +295,10 @@ class PagedServeEngine(ServeEngine):
     instead of a whole ``max_len`` row; full prompt pages are shared
     between requests by content (``prefix_chain``).  Prompts prefill one
     chunk of ``min(2 * page_size, max_len)`` tokens per ``step()`` (one per
-    idle row when rows are idle), interleaved with live decodes: every
-    config the port admits (``check_supported``) can chunk.  Prompts are
-    not bucketed: chunking takes its place.
+    idle row when rows are idle), interleaved with live decodes.  Prompts
+    are not bucketed: chunking takes its place.  Configs that cannot chunk
+    (``chunk_supported``: MoE) raise, since the whole-prompt path that
+    pages their cache afterwards is not ported.
     """
 
     def __init__(self, params, cfg: LMConfig, qcfg: QuantConfig, *,
@@ -301,6 +309,13 @@ class PagedServeEngine(ServeEngine):
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"page_size {page_size} (the page table views "
                              "a whole number of pages per row)")
+        check_supported(cfg)
+        if not chunk_supported(cfg):
+            raise NotImplementedError(
+                f"config {cfg.name!r} cannot prefill in chunks (MoE routing "
+                "is batch-level): the paged engine's whole-prompt path "
+                "(pagify) comes with ROADMAP Queue A item 4; serve it with "
+                "ServeEngine")
         self.n_pages = n_pages
         self.page_size = page_size
         self.P = max_len // page_size

@@ -41,7 +41,9 @@ def _items(tree, prefix=""):
 def _flatten(tree) -> Dict[str, np.ndarray]:
     out = {}
     for key, leaf in _items(tree):
-        t = torch.as_tensor(leaf).detach().cpu()
+        # a copy even of a CPU tensor: the trainer updates its leaves in
+        # place while the writer thread still reads them
+        t = torch.as_tensor(leaf).detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             out[_BF16 + key] = t.view(torch.int16).numpy().view(np.uint16)
         else:

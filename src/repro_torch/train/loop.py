@@ -90,15 +90,18 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 
 def _unflatten(tree, leaves):
-    it = iter(leaves)
+    return _build(tree, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [build(v) for v in node]
-        return next(it)
-    return build(tree)
+
+def _build(node, it):
+    # A module-level recursion: a recursive closure is a reference cycle
+    # that would hold ``leaves`` (a step's gradients) until the cyclic
+    # collector runs.
+    if isinstance(node, dict):
+        return {k: _build(v, it) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_build(v, it) for v in node]
+    return next(it)
 
 
 def _microbatched(batch, n: int):
@@ -407,8 +410,8 @@ class Trainer:
             med = sorted(win)[len(win) // 2]
             rec = {"step": s, "loss": loss, "grad_norm": gnorm,
                    "lr": metrics["lr"], "time_s": dt}
-            for k in ("guard_zeta", "guard_gnorm_ratio", "guard_loss_ratio",
-                      "guard_loss_curvature"):
+            for k in ("aux_loss", "guard_zeta", "guard_gnorm_ratio",
+                      "guard_loss_ratio", "guard_loss_curvature"):
                 if k in metrics:
                     rec[k] = metrics[k]
             if dt > self.tcfg.straggler_factor * med and len(
