@@ -126,10 +126,26 @@ Phases, each of which raises on failure:
                 greedy 64-token prompts x 32 tokens (all finish; 3 lane
                 GEMMs per MoE layer per prefill and decode step); teacher-
                 forced logits of the lead dense layer and one MoE layer on
-                the card against the CPU; 10 Trainer steps at 8 x 512
+                the card against the CPU; PagedServeEngine on the same
+                prompts through its whole-prompt path (tokens equal the
+                slab engine's, the paged decode kernel launched); 10
+                Trainer steps at 8 x 512
                 under mxfp8_e4m3 and bf16 (finite, falling losses; 3
                 forward, 3 dgrad and 3 wgrad lane GEMMs a step per MoE
                 layer) and two 3-step replays with equal bits.
+ 14. mla      — moonshot's state freed, deepseek-v2-236b at full width
+                (MLA: qk head dim 192, v 128, kv_lora 512; weights from a
+                CUDA generator) with its depth cut to 2 layers (1 dense,
+                1 MoE of 160 experts): ServeEngine and PagedServeEngine
+                (whole-prompt prefill, latent pages) with 8 greedy
+                64-token prompts x 32 tokens, all finishing, paged tokens
+                bitwise the slab engine's; the absorbed decode's
+                teacher-forced logits against the expanded form's at the
+                same 8 positions; then the lead dense layer alone: logits
+                on the card against the CPU at 64 positions, and 10
+                Trainer steps at 4 x 512 under mxfp8_e4m3 and bf16 (one
+                flash forward and one flash dgrad a layer a step; finite,
+                falling losses) with two 3-step replays of equal bits.
 The kernel phase also holds the dgrad, wgrad and flash dgrad kernels at
 the training shapes (4096 tokens; BH 64, T 512) against their plain
 versions, with planted faults that their checks reject (dgrad with W
@@ -152,8 +168,13 @@ flash dgrad at d 128 with q and k at std 1 (logits of a few hundred)
 against the fp64 grads beside its plain version, and runs the flash
 forward at BH 64, T 512 and at the bucket of 512 under both rules (the
 operands' adaptive near ties counted), each with the rule's planted
-faults (FLASH_MODE_FAULTS) through its near-tie check.  SDPA times are
-PyTorch's FlashAttention kernel (sdpa_flash), forward and backward.
+faults (FLASH_MODE_FAULTS) through its near-tie check.  The flash forward
+and dgrad also run at MLA's head dims (MLA_FLASH_SHAPES: d 192 / dv 128
+at BH 512, T 512, and d 24 / dv 16), both modes, with the softmax scale
+taken from dv and v read with the qk dim's stride planted and rejected.
+SDPA times are PyTorch's FlashAttention kernel (sdpa_flash), forward and
+backward; at dv != d the first fused SDPA backend that takes the shapes
+(sdpa_any, its name in the row).
 
 Prints one JSON line of kernel numbers, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}.
@@ -358,10 +379,29 @@ DECODE_FAULTS = ("p unquantized", "p quantized before normalizing",
                  "v quantized along d", "v quantized over valid slots only")
 
 
+# Faults of a flash kernel whose qk head dim differs from its v head dim
+# (MLA: 192 against 128), planted in the forward and the dgrad: the
+# softmax scale 1/sqrt(dv) in place of 1/sqrt(d), and v's rows read with
+# the qk dim's stride.
+MLA_FLASH_FAULTS = ("softmax scale from dv", "v read with the qk dim's "
+                    "stride")
+
+
+def v_qk_stride(v, d: int):
+    """What a kernel reads as v (BH, Tk, dv) when it steps v's rows by d:
+    row t of head b at element t d of the head's block (zeros past the
+    end)."""
+    import torch
+    BH, Tk, dv = v.shape
+    flat = torch.nn.functional.pad(v.reshape(BH, Tk * dv),
+                                   (0, Tk * max(d - dv, 0)))
+    return flat.as_strided((BH, Tk, dv), (flat.shape[1], d, 1)).contiguous()
+
+
 def planted_flash(q, k, v, fmt, fault, scale_mode="floor"):
     """The plain causal flash forward for one kv tile (every serve bucket
     fits in one: kv_chunk 1024) under ``scale_mode`` with one planted
-    ``fault`` (None: none)."""
+    ``fault`` (None: none; FLASH_FAULTS or MLA_FLASH_FAULTS)."""
     import torch
     from repro_torch.core import quantize_mx
     from repro_torch.kernels.ref import NEG_INF
@@ -370,7 +410,10 @@ def planted_flash(q, k, v, fmt, fault, scale_mode="floor"):
         return quantize_mx(x, fmt, axis=axis, scale_mode=scale_mode)
     T = k.shape[1]
     s = torch.einsum("bgqd,bkd->bgqk", Q(q.float(), -1), Q(k.float(), -1))
-    s = s * (1.0 / math.sqrt(q.shape[-1]))
+    s = s * (1.0 / math.sqrt(v.shape[-1] if fault == MLA_FLASH_FAULTS[0]
+                             else q.shape[-1]))
+    if fault == MLA_FLASH_FAULTS[1]:
+        v = v_qk_stride(v, q.shape[-1])
     valid = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
@@ -536,10 +579,16 @@ def phase_build():
     from repro_torch.kernels import build
     out = build.build()
     print(f"[build] {out} in {build.last_build_seconds():.2f} s", flush=True)
-    for name in build.SOURCES:
+    for name in build.SOURCES:   # ptxas -v: registers and spills a kernel
+        fn, spill = "?", ""
         for line in (out / f"{name}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("for", 1)[1].strip()
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line:
+                print(f"[build] {name}: {fn}: {line.split(':', 1)[1].strip()}"
+                      f"; {spill}")
 
 
 def phase_kernels():
@@ -689,6 +738,7 @@ def phase_kernels():
                None, None, decode_bound(valid, H, G, d, dv))
     paged_kernels(record, flush)
     training_kernels(rnd, record, flush)
+    mla_flash_kernels(rnd, record, flush)
     return rows
 
 
@@ -1410,7 +1460,8 @@ def attn_valid(spec, Tq: int, Tk: int, device):
 def flash_bwd_dense(q, k, v, dout, out, lse, fmt, fault=None,
                     scale_mode="floor", spec=None):
     """Untiled flash dgrad in fp64 under ``spec`` (default causal) with one
-    planted ``fault`` (None: none), any G, Tq and Tk.  Returns ((dq, dk,
+    planted ``fault`` (None: none; FLASH_BWD_FAULTS or MLA_FLASH_FAULTS),
+    any G, Tq and Tk.  Returns ((dq, dk,
     dv), (bound_q, bound_k, bound_v)) in fp64; the bounds are those of
     FLASH_BWD_EPS."""
     import torch
@@ -1421,7 +1472,10 @@ def flash_bwd_dense(q, k, v, dout, out, lse, fmt, fault=None,
         return quantize_mx(x.float(), fmt, axis=axis,
                            scale_mode=scale_mode).to(f64)
     Tq, Tk, d = q.shape[2], k.shape[1], q.shape[-1]
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(v.shape[-1] if fault == MLA_FLASH_FAULTS[0]
+                            else d)
+    if fault == MLA_FLASH_FAULTS[1]:
+        v = v_qk_stride(v, d)
     qq, kk = Q(q, -1), Q(k, -1)
     if fault == "p from unquantized scores":
         qq, kk = q.to(f64), k.to(f64)
@@ -2377,6 +2431,130 @@ def training_kernels(rnd, record, flush):
                        flush), None, None,
                bound(2 * 4 * d * (BH * G * Tq + BH * Tk) + 4 * BH * G * Tq,
                      10 * d * n_valid))
+
+
+def sdpa_any(q, k, v):
+    """PyTorch's SDPA, causal, on (BH, T, ·) q, k, v taken as (BH, 1, T,
+    ·), held to the first fused backend (FlashAttention, memory-efficient,
+    cuDNN) that takes these shapes, v's head dim unlike q's included.
+    Returns (a function of no argument making the call, the backend's
+    name), or (None, "none") when no fused backend takes them."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    q[:, None], k[:, None], v[:, None], is_causal=True)
+        try:
+            with warnings.catch_warnings():   # each refusal warns its why
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    return None, "none"
+
+
+# MLA's flash shapes: (label, BH, T, d, dv, primary).  BH 512 is deepseek-
+# v2-236b's 128 heads at [mla]'s training batch of 4 x 512 tokens (q is
+# [q_nope, q_rope], 128 + 64; v 128); d 24 / dv 16 is its smoke config's.
+MLA_FLASH_SHAPES = (("deepseek-v2-236b train", 512, 512, 192, 128),
+                    ("deepseek-v2-236b smoke", 16, 300, 24, 16))
+
+
+def mla_flash_kernels(rnd, record, flush):
+    """Kernels 5 and 6 at MLA's head dims (MLA_FLASH_SHAPES), causal, in
+    e4m3 and bf16 mode: each against its plain version (the forward with
+    the near-tie slack, the dgrad within its term bound), each called
+    twice for equal bits, MLA_FLASH_FAULTS (and in the forward at T a
+    multiple of 32 FLASH_FAULTS) planted and rejected in e4m3, and SDPA's
+    time beside the bf16 rows where a fused backend takes dv != d."""
+    import torch
+    from repro_torch.core import E4M3, AttnSpec
+    from repro_torch.kernels import ops, ref
+
+    spec = AttnSpec()
+    for label, BH, T, d, dv in MLA_FLASH_SHAPES:
+        q, k, v = rnd(BH, 1, T, d), rnd(BH, T, d), rnd(BH, T, dv)
+        dout = rnd(BH, 1, T, dv, std=1e-2)
+        n_scores = int(attn_valid(spec, T, T, q.device).sum()) * BH
+        for fmt in (E4M3, None):
+            mode = "e4m3" if fmt else "bf16"
+            c = flash_fwd_case(q, k, v, fmt, spec)
+            if fmt is not None:   # the sub-tile fault needs T % 32 == 0
+                check_controls(f"flash {label}", c["check"],
+                               lambda fault: planted_flash(q, k, v, fmt,
+                                                           fault),
+                               MLA_FLASH_FAULTS + (FLASH_FAULTS if T % 32 == 0
+                                                   else ()))
+            lib, backend = None, None
+            if fmt is None:
+                call, backend = sdpa_any(q[:, 0], k, v)
+                lib = call and time_ms(call, 10, flush)
+            record("mx_flash_attention",
+                   f"mla {label} BH{BH} G1 T{T} d{d} dv{dv} causal {mode} "
+                   f"(worst err/tol {c['worst']:.3f}, lse err "
+                   f"{c['lse_err']:.2e}, replay equal {c['replay']})",
+                   False, c["err"], c["ok"],
+                   time_ms(lambda: ops.mx_flash_attention(q, k, v, fmt,
+                                                          spec), 10, flush),
+                   time_ms(lambda: ref.mx_flash_attention_ref(q, k, v, fmt,
+                                                              spec), 3,
+                           flush),
+                   lib, flash_bound(BH, 1, T, T, d, dv, spec, q.device),
+                   near_tie_rows=c["ties"], sdpa_backend=backend)
+            del c
+            c = flash_bwd_case(q, k, v, dout, fmt, spec)
+            args, want, bounds = c["args"], c["want"], c["bounds"]
+            control_ok, control = flash_bwd_check(
+                flash_bwd_dense(*args[:7])[0], want, bounds)
+            if not control_ok:
+                raise AssertionError(f"flash dgrad {label} {mode}: "
+                                     "fault-free control fails the check "
+                                     f"(worst {control})")
+            if fmt is not None:
+                for fault in MLA_FLASH_FAULTS:
+                    accepted, w_ = flash_bwd_check(
+                        flash_bwd_dense(*args[:7], fault)[0], want, bounds)
+                    print(f"[controls] flash dgrad {label}: {fault!r} worst "
+                          f"err/tol {w_:.2f} ("
+                          f"{'ACCEPTED' if accepted else 'rejected'})",
+                          flush=True)
+                    if accepted:
+                        raise AssertionError(
+                            f"flash dgrad {label}: the check accepts the "
+                            f"planted fault {fault!r}")
+            lib = None
+            if fmt is None:
+                qs, ks, vs = (t.detach().requires_grad_(True)
+                              for t in (q[:, 0], k, v))
+                call, backend = sdpa_any(qs, ks, vs)
+                if call is not None:
+                    o = call()
+                    lib = time_ms(lambda: torch.autograd.grad(
+                        o, (qs, ks, vs), dout, retain_graph=True), 10, flush)
+                    del o
+            record("mx_flash_attention_bwd",
+                   f"mla {label} BH{BH} G1 T{T} d{d} dv{dv} causal {mode} "
+                   f"(worst err/tol {c['worst']:.3f}, control "
+                   f"{control:.3f}, replay equal {c['replay']})", False,
+                   c["err"], c["ok"],
+                   time_ms(lambda: ops.mx_flash_attention_bwd(*args), 10,
+                           flush),
+                   time_ms(lambda: ref.mx_flash_attention_bwd_ref(*args), 3,
+                           flush),
+                   lib, bound(2 * 4 * BH * T * (d + dv) + 4 * BH * T,
+                              (6 * d + 4 * dv) * n_scores),
+                   sdpa_backend=backend)
+            del c, args, want, bounds
+        del q, k, v, dout
+        torch.cuda.empty_cache()
 
 
 # Edges of the flash dgrad kernel beside the training shape: (label, BH, G,
@@ -4118,20 +4296,18 @@ def moe_config(n_layers: int):
                                n_layers=n_layers)
 
 
-def moe_lane_kernels(rows):
-    """Kernels 2-4 with their lane axis at the routed experts' shapes under
-    training: 64 lanes of C = 480 rows (8 x 512 tokens, top-6, capacity
-    factor 1.25), d_model 2048, moe_dff 1408, bf16 operands in E4M3 under
-    the floor rule; the forward also at the down product's shape.  Each
-    through lane_case (bitwise the 2-D kernel lane by lane, gemm_check
-    against the plain version, equal bits on a second call), timed
-    against the plain version and torch.bmm; the rows gain the cases."""
+def expert_lane_kernels(rows, tag, cfg, C, seed):
+    """Kernels 2-4 with their lane axis at ``cfg``'s routed experts' shapes:
+    n_experts lanes of C rows, d_model and moe_dff, bf16 operands in E4M3
+    under the floor rule; the forward at the up and the down product's
+    shapes, dgrad and wgrad at the up product's.  Each through lane_case
+    (bitwise the 2-D kernel lane by lane, gemm_check against the plain
+    version, equal bits on a second call), timed against the plain
+    version and torch.bmm; the rows gain the cases."""
     import torch
     from repro_torch.core import get_format
-    cfg = moe_config(MOE_LAYERS)
     E, D, F = cfg.n_experts, cfg.d_model, cfg.moe_dff
-    C = 480
-    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     flush = torch.zeros(64 * 2 ** 20, dtype=torch.uint8,
                         device="cuda").bitwise_not_
     fmt = get_format("e4m3")
@@ -4151,15 +4327,15 @@ def moe_lane_kernels(rows):
         name = dict(zip(("fwd", "dgrad", "wgrad"), LANE_KERNELS))[kind]
         c = lane_case(kind, a, b, fmt, "floor")
         ok = c["bitwise_2d"] and c["replay"] and c["worst"] <= 1.0
-        print(f"[moe] {'ok  ' if ok else 'FAIL'} {label} {name} "
+        print(f"[{tag}] {'ok  ' if ok else 'FAIL'} {label} {name} "
               f"{json.dumps(c)}", flush=True)
         if not ok:
-            raise AssertionError(f"moe {label} {name}: bitwise "
+            raise AssertionError(f"{tag} {label} {name}: bitwise "
                                  f"{c['bitwise_2d']}, replay {c['replay']}, "
                                  f"worst err/tol {c['worst']}")
         fn, _, plain, _ = lane_fns(kind)
         events0 = EVENT_TIMED[0]
-        entry = {"case": f"moe {label} L{E} {tuple(a.shape)}x"
+        entry = {"case": f"{tag} {label} L{E} {tuple(a.shape)}x"
                          f"{tuple(b.shape)} bf16 e4m3 floor",
                  "max_abs_err": c["max_abs_err"],
                  "ms": time_ms(lambda: fn(a, b, fmt, fmt), 10, flush),
@@ -4170,7 +4346,7 @@ def moe_lane_kernels(rows):
         entry["bound_ms"], entry["bound_by"] = lane_bound(kind, a, b)
         entry["timing"] = ("events" if EVENT_TIMED[0] > events0
                            else "profiler")
-        print(f"[moe] {name} {json.dumps(entry)}", flush=True)
+        print(f"[{tag}] {name} {json.dumps(entry)}", flush=True)
         rows[name]["cases"].append(entry)
         del a, b
     torch.cuda.empty_cache()
@@ -4208,24 +4384,29 @@ def moe_serve(params, cfg, dev: str = "cuda"):
     """ServeEngine (max_batch 4) on 8 greedy 64-token prompts, 32 new
     tokens each, under mxfp8_e4m3: every request finishes, the lane GEMM
     runs 3 times per MoE layer in a prefill and in a decode step (up,
-    gate, down), and the routed experts' dropped share is printed.
-    Returns the launch counts of the engine's run."""
+    gate, down), and the routed experts' dropped share is printed.  Then
+    PagedServeEngine (32 pages of 32) on the same prompts through its
+    whole-prompt path: every request finishes with the slab engine's
+    tokens, the paged decode kernel runs.  Returns the launch counts of
+    both engines' runs."""
     import numpy as np
     import torch
     from repro_torch.core import preset
     from repro_torch.kernels import ops
     from repro_torch.models import (init_cache, lm_decode_step, lm_prefill,
                                     moe)
-    from repro_torch.serve import SamplingParams, ServeEngine
+    from repro_torch.serve import (PagedServeEngine, SamplingParams,
+                                   ServeEngine)
 
     qcfg = preset("mxfp8_e4m3")
     n_moe = sum("moe" in lp for lp in params["layers"])
     eng = ServeEngine(params, cfg, qcfg, max_batch=4, max_len=128,
                       device=dev)
     rng = np.random.default_rng(SEED + 3)
-    for _ in range(8):
-        eng.submit(rng.integers(1, cfg.vocab, 64).astype(np.int32),
-                   SamplingParams(max_new_tokens=32))
+    prompts = [rng.integers(1, cfg.vocab, 64).astype(np.int32)
+               for _ in range(8)]
+    for pr in prompts:
+        eng.submit(pr, SamplingParams(max_new_tokens=32))
     _peak_reset(dev)
     moe.reset_routing()
     ops.reset_launches()
@@ -4270,9 +4451,37 @@ def moe_serve(params, cfg, dev: str = "cuda"):
                   if counts[k] == 0)
     if idle and dev == "cuda":
         raise AssertionError(f"moe serve: kernels never launched: {idle}")
+    tokens = [list(map(int, r.tokens)) for r in done]
     del eng
     _free(dev)
-    return counts
+    eng = PagedServeEngine(params, cfg, qcfg, max_batch=4, max_len=128,
+                           n_pages=32, page_size=32, device=dev)
+    for pr in prompts:
+        eng.submit(pr, SamplingParams(max_new_tokens=32))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    done = eng.drain()
+    _sync(dev)
+    paged = dict(ops.LAUNCHES)
+    eng.alloc.check()
+    st = eng.stats()
+    same = [list(map(int, r.tokens)) for r in done] == tokens
+    rec = {"requests": len(done), "chunked": eng.chunk,
+           "wall_s": time.perf_counter() - t0,
+           "prefill_tok_s": st["prefill_tok_s"],
+           "decode_tok_s": st["decode_tok_s"], "tokens_equal_slab": same,
+           "launches": paged}
+    print(f"[moe] {'ok  ' if same else 'FAIL'} serve paged mxfp8_e4m3 "
+          f"(whole-prompt path): {json.dumps(rec)}", flush=True)
+    if not same:
+        raise AssertionError("moe: the paged engine's greedy tokens differ "
+                             "from the slab engine's")
+    if dev == "cuda" and paged["mx_attention_decode_paged"] == 0:
+        raise AssertionError("moe paged serve: the paged decode kernel was "
+                             "never launched")
+    del eng
+    _free(dev)
+    return counts, paged
 
 
 def moe_parity(params, cfg, devs=("cuda", "cpu")):
@@ -4409,28 +4618,555 @@ def moe_train(params, cfg, dev: str = "cuda", B: int = MOE_B,
 def phase_moe(rows):
     """[moe]: the lane kernels at the experts' shapes, then
     moonshot-v1-16b-a3b at full width and MOE_LAYERS layers, weights drawn
-    on a CUDA generator: serving, card-against-CPU parity, training.
-    Returns the launch counts of the serve and train runs."""
+    on a CUDA generator: serving (slab and paged), card-against-CPU
+    parity, training.  Returns the launch counts of the serve and train
+    runs."""
     import torch
     from repro_torch.core.diagnostics import tree_leaves_with_path
     from repro_torch.models import lm_init, tree_map
 
-    moe_lane_kernels(rows)
     cfg = moe_config(MOE_LAYERS)
+    # training's capacity: 8 x 512 tokens, top-6, capacity factor 1.25
+    expert_lane_kernels(rows, "moe", cfg, 480, SEED + 23)
     t0 = time.perf_counter()
     params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                      "cuda")
     n = sum(t.numel() for _, t in tree_leaves_with_path(params))
     print(f"[moe] {cfg.name} {cfg.n_layers} layers: {n} parameters, "
           f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
-    serve = moe_serve(params, cfg)
+    serve, paged = moe_serve(params, cfg)
     moe_parity(params, cfg)
     # The trainers draw fresh copies from the host: the card holds one
     # model's weights, gradients and moments at a time.
     params = tree_map(lambda t: t.cpu(), params)
     torch.cuda.empty_cache()
     train = moe_train(params, cfg)
-    return {"serve": serve, "train": train["counts"]}
+    return {"serve": serve, "paged": paged, "train": train["counts"]}
+
+
+MLA_ARCH = "deepseek-v2-236b"
+# Serving runs the lead dense layer and one MoE layer (160 experts, top-6
+# plus 2 shared) at full width: 5.36 G fp32 parameters (21.4 GB) beside
+# the engine's bf16 copy.  Training runs the lead dense layer alone (1.39
+# G parameters: weights, gradients and two AdamW moments 22.2 GB); one
+# MoE layer of deepseek alone needs 63.5 GB of such state, so two layers
+# do not fit the card.  MoE training at full width is [moe]'s.
+MLA_SERVE_LAYERS, MLA_TRAIN_LAYERS = 2, 1
+MLA_B, MLA_T, MLA_STEPS = 4, 512, 10
+# Limits at 1.5x the first reading (PERF.md §6; an H100 80GB HBM3 at 700
+# W), each (rel_fro, max_abs_err): the absorbed decode against the
+# expanded form at the same 8 positions, the lead layer's attention output
+# alone (mxfp8_e4m3 rel 0.08200774 / max 0.03198242, bf16 0.004379366 /
+# 0.001953125) and the 2-layer model's teacher-forced logits (0.1823494 /
+# 1.0625, 0.01151662 / 0.0625); the 1-layer model's card logits against
+# the CPU's at 64 positions (mxfp8_e4m3 rel 0.008461246 / max 0.21875);
+# the 1-layer model's card gradients against the CPU's, the largest
+# relative Frobenius error of any leaf (0.05427870, w_dkv).  The two forms
+# quantize at different points under MX (expanded: q and k along the
+# 192-wide head, p and v along kv; absorbed: q_nope along its 128, pr and
+# the latents along the cache), so they agree to MX noise there; in bf16
+# they round different intermediates (k_nope and v against q_eff and the
+# context).
+MLA_ABSORB = {"mxfp8_e4m3": {"layer": (1.5 * 0.08200774, 1.5 * 0.03198242),
+                             "logits": (1.5 * 0.1823494, 1.5 * 1.0625)},
+              "bf16": {"layer": (1.5 * 0.004379366, 1.5 * 0.001953125),
+                       "logits": (1.5 * 0.01151662, 1.5 * 0.0625)}}
+# Planted decode faults a check cannot see: under mxfp8_e4m3 the late
+# rope moves the 2-layer logits by rel 0.2653 / max 1.389, inside their MX
+# limits (the layer check rejects it at rel 0.1606 / max 0.06269).
+MLA_ABSORB_BLIND = {("logits", "mxfp8_e4m3"): ("query rope one position "
+                                               "late",)}
+MLA_LOGIT_REL, MLA_LOGIT_ATOL = 1.5 * 0.008461246, 1.5 * 0.21875
+MLA_GRAD_REL = 1.5 * 0.05427870
+
+
+def mla_config(n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MLA_ARCH, "full"),
+                               n_layers=n_layers)
+
+
+def _limit_check(tag, rec, rel_limit, atol_limit):
+    """rec's rel_fro and max_abs_err within the limits."""
+    rec["limits"] = {"rel_fro": rel_limit, "max_abs_err": atol_limit}
+    ok = rec["rel_fro"] <= rel_limit and rec["max_abs_err"] <= atol_limit
+    print(f"[mla] {'ok  ' if ok else 'FAIL'} {tag}: {json.dumps(rec)}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"mla {tag}: logits disagree")
+
+
+def _logit_diff(a, b):
+    import torch
+    rows = (a - b).abs().amax(-1)
+    return {"positions": a.shape[0],
+            "rel_fro": (torch.linalg.norm(a - b)
+                        / torch.linalg.norm(b)).item(),
+            "max_abs_err": rows.max().item(),
+            "median_row_max_abs_err": rows.median().item(),
+            "argmax_agree": int((a.argmax(-1) == b.argmax(-1)).sum())}
+
+
+def mla_serve(params, cfg, dev: str = "cuda"):
+    """ServeEngine and PagedServeEngine (max_batch 4, max_len 128, page
+    size 32; the paged engine prefills whole and pages the latents) on 8
+    greedy 64-token prompts, 32 new tokens each, under mxfp8_e4m3: every
+    request finishes, the paged engine's tokens equal the slab engine's,
+    the flash forward runs once per layer a prefill, and each engine's
+    prefill and decode tokens/s and peak memory are printed.  Returns
+    the launch counts of both engines' runs."""
+    import numpy as np
+    from repro_torch.core import preset
+    from repro_torch.kernels import ops
+    from repro_torch.serve import (PagedServeEngine, SamplingParams,
+                                   ServeEngine)
+
+    qcfg = preset("mxfp8_e4m3")
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [rng.integers(1, cfg.vocab, 64).astype(np.int32)
+               for _ in range(8)]
+    tokens, counts = {}, {}
+    for kind in ("slab", "paged"):
+        if kind == "slab":
+            eng = ServeEngine(params, cfg, qcfg, max_batch=4, max_len=128,
+                              device=dev)
+        else:
+            eng = PagedServeEngine(params, cfg, qcfg, max_batch=4,
+                                   max_len=128, n_pages=32, page_size=32,
+                                   device=dev)
+        for pr in prompts:
+            eng.submit(pr, SamplingParams(max_new_tokens=32))
+        _peak_reset(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        done = eng.drain()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts[kind] = dict(ops.LAUNCHES)
+        st = eng.stats()
+        if len(done) != 8 or any(len(r.tokens) != 32 for r in done):
+            raise AssertionError(f"mla {kind} serve: {len(done)} of 8 "
+                                 f"requests, {[len(r.tokens) for r in done]}"
+                                 " tokens")
+        tokens[kind] = [list(map(int, r.tokens)) for r in done]
+        rec = {"requests": len(done), "wall_s": wall,
+               "prefill_tok_s": st["prefill_tok_s"],
+               "decode_tok_s": st["decode_tok_s"],
+               "decode_steps": st["decode_steps"],
+               "max_memory_allocated": _peak(dev),
+               "launches": counts[kind]}
+        if kind == "paged":
+            eng.alloc.check()
+            rec["chunked"] = eng.chunk
+        print(f"[mla] serve {kind} mxfp8_e4m3: {json.dumps(rec)}",
+              flush=True)
+        if dev == "cuda" and counts[kind]["mx_flash_attention"] != \
+                8 * cfg.n_layers:
+            raise AssertionError(
+                f"mla {kind} serve: {counts[kind]['mx_flash_attention']} "
+                f"flash forwards, expected {8 * cfg.n_layers}")
+        idle = sorted(k for k in ("mx_quantize", "mx_matmul",
+                                  "mx_matmul_lanes", "mx_flash_attention")
+                      if counts[kind][k] == 0)
+        if idle and dev == "cuda":
+            raise AssertionError(f"mla {kind} serve: kernels never "
+                                 f"launched: {idle}")
+        del eng
+        _free(dev)
+    same = tokens["paged"] == tokens["slab"]
+    print(f"[mla] {'ok  ' if same else 'FAIL'} paged tokens equal slab "
+          f"tokens: {same}", flush=True)
+    if not same:
+        raise AssertionError("mla: the paged engine's greedy tokens differ "
+                             "from the slab engine's")
+    return counts
+
+
+def mla_decode_gemms(rows, cfg, M: int = 4):
+    """Kernel 2, 2-D, at the decode's row count (M = max_batch 4) on the
+    shapes a deepseek decode step gives it: the absorbed decode's
+    projections (w_dq, w_dkv, w_kr, w_uq, wo), the lead dense layer's
+    SwiGLU, the shared experts' and the lm_head; bf16 operands in E4M3
+    under the floor rule.  Each within gemm_check of the plain version
+    and bitwise on a second call, timed beside the plain version and
+    torch.matmul; the mx_matmul row gains the cases."""
+    import torch
+    from repro_torch.core import E4M3
+    from repro_torch.kernels import ops, ref
+    H, D = cfg.n_heads, cfg.d_model
+    sh = cfg.n_shared * cfg.moe_dff
+    shapes = (("w_dq", D, cfg.q_lora), ("w_dkv", D, cfg.kv_lora),
+              ("w_kr", D, cfg.rope_dim), ("w_uq", cfg.q_lora, H * cfg.qk_dim),
+              ("wo", H * cfg.v_head, D), ("dense w_up", D, cfg.d_ff),
+              ("dense w_down", cfg.d_ff, D), ("shared w_up", D, sh),
+              ("shared w_down", sh, D), ("lm_head", D, cfg.vocab))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").bitwise_not_
+    card = torch.cuda.get_device_name(0)
+    for label, K, N in shapes:
+        a = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+        b = (torch.randn((K, N), generator=g, device="cuda")
+             * K ** -0.5).bfloat16()
+
+        def fn():
+            return ops.mx_matmul(a, b, E4M3, E4M3)
+        got, want = fn(), ref.mx_matmul_ref(a, b, E4M3, E4M3)
+        ok, worst, err = gemm_check(
+            got, want, ref.mx_quantize_ref(a, E4M3).float().abs(),
+            ref.mx_quantize_ref(b, E4M3, axis=0).float().abs(), K)
+        replay = torch.equal(got, fn())
+        small, _, splits = ops.fwd_gemm_plan(M, N, K)
+        events0 = EVENT_TIMED[0]
+        entry = {"case": f"mla decode {label} {M}x{K}x{N} e4m3/e4m3 "
+                         f"({'small-M' if small else 'wgmma'} path, "
+                         f"{splits} splits)",
+                 "max_abs_err": err, "worst": worst, "replay": replay,
+                 "ms": time_ms(fn, 20, flush),
+                 "plain_ms": time_ms(
+                     lambda: ref.mx_matmul_ref(a, b, E4M3, E4M3), 3, flush),
+                 "library_ms": time_ms(lambda: torch.matmul(a, b), 20,
+                                       flush), "card": card}
+        entry["bound_ms"], entry["bound_by"] = bound(
+            2 * (M * K + K * N + M * N), 2 * M * N * K)
+        entry["timing"] = ("events" if EVENT_TIMED[0] > events0
+                           else "profiler")
+        good = ok and replay
+        print(f"[mla] {'ok  ' if good else 'FAIL'} mx_matmul "
+              f"{json.dumps(entry)}", flush=True)
+        if not good:
+            raise AssertionError(f"mla decode {label}: worst err/tol "
+                                 f"{worst}, replay {replay}")
+        rows["mx_matmul"]["cases"].append(entry)
+        del a, b
+    torch.cuda.empty_cache()
+
+
+def _absorb_faults():
+    """Decode faults the absorbed-form checks must reject, each a wrapper
+    of ``mla._absorbed_attend``: the query's rope taken one position
+    late, and W_uv read one head over (each head's context mapped by the
+    next head's value projection)."""
+    import torch
+
+    def late_rope(orig):
+        def f(*a):
+            a = list(a)
+            a[10] = a[10] + 1          # positions
+            return orig(*a)
+        return f
+
+    def next_head_uv(orig):
+        def f(p, *a):
+            kv_lora, H = p["w_uv"]["w"].shape[0], a[5]
+            w = p["w_uv"]["w"].reshape(kv_lora, H, -1)
+            p = dict(p, w_uv={"w": torch.roll(w, 1, dims=1).reshape(
+                kv_lora, -1)})
+            return orig(p, *a)
+        return f
+    return {"query rope one position late": late_rope,
+            "W_uv of the next head": next_head_uv}
+
+
+def _planted_absorb(fault, fn):
+    """``fn()`` with ``mla._absorbed_attend`` wrapped by ``fault`` (None:
+    as it is)."""
+    from repro_torch.models import mla
+    orig = mla._absorbed_attend
+    if fault is not None:
+        mla._absorbed_attend = _absorb_faults()[fault](orig)
+    try:
+        return fn()
+    finally:
+        mla._absorbed_attend = orig
+
+
+def _hold_absorbed(tag, rec, limits, planted, blind=()):
+    """rec within ``limits`` (rel_fro, max_abs_err), and each planted
+    fault's reading outside them, but for the ``blind`` ones (printed
+    only)."""
+    _limit_check(tag, rec, *limits)
+    for fault, bad in planted.items():
+        rejected = bad["rel_fro"] > limits[0] or bad["max_abs_err"] > limits[1]
+        verdict = ("rejected" if rejected else
+                   "accepted: not seen here" if fault in blind else
+                   "ACCEPTED")
+        print(f"[controls] mla {tag}: {fault!r} rel_fro "
+              f"{bad['rel_fro']:.4g}, max_abs_err {bad['max_abs_err']:.4g} "
+              f"({verdict})", flush=True)
+        if not rejected and fault not in blind:
+            raise AssertionError(f"mla {tag}: the limits accept the planted "
+                                 f"fault {fault!r}")
+
+
+def mla_absorbed(params, cfg, dev: str = "cuda"):
+    """The absorbed decode against the expanded form at the same positions,
+    same bf16 serving weights, under mxfp8_e4m3 and bf16, each with the
+    _absorb_faults planted and rejected (but for MLA_ABSORB_BLIND's):
+    (1) the lead layer's attention alone on one 72-row input of unit
+    scale: 8 mla_decode steps after a 64-row mla_prefill, against a
+    72-row mla_prefill's rows 64-71;
+    (2) the 2-layer model's teacher-forced logits: a 64-token lm_prefill
+    plus 8 lm_decode_step calls fed tokens 64-71, against lm_prefill of
+    the first 65, ..., 72 tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import lm_decode_step, lm_prefill, mla
+    from repro_torch.models.transformer import _mla_kw
+    from repro_torch.serve import serving_params
+
+    p = serving_params(params, dev)
+    toks = torch.as_tensor(np.random.default_rng(SEED + 6).integers(
+        1, cfg.vocab, (1, 72)), device=dev)
+    x = torch.randn((1, 72, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(
+                        SEED + 9)).bfloat16()
+    attn, kw = p["layers"][0]["attn"], _mla_kw(cfg)
+    spec = cfg.attn_spec(cache_len=128)
+    pos = torch.arange(72, device=dev)[None]
+    out = {}
+    for name in MLA_ABSORB:
+        qcfg = preset(name)
+        with torch.inference_mode():
+            want_l = mla.mla_prefill(attn, x, qcfg=qcfg, positions=pos,
+                                     spec=spec, **kw)[0][0, 64:].float()
+            want = torch.stack([lm_prefill(p, toks[:, :i + 1], cfg, qcfg,
+                                           128)[0][0].float()
+                                for i in range(64, 72)])
+
+            def layer():
+                _, c = mla.mla_prefill(attn, x[:, :64], qcfg=qcfg,
+                                       positions=pos[:, :64], spec=spec,
+                                       **kw)
+                rows = []
+                for i in range(64, 72):
+                    o, c = mla.mla_decode(attn, x[:, i:i + 1], c, qcfg=qcfg,
+                                          pos=pos[0, i:i + 1], **kw)
+                    rows.append(o[0, 0].float())
+                return _logit_diff(torch.stack(rows).cpu(), want_l.cpu())
+
+            def logits():
+                _, cache = lm_prefill(p, toks[:, :64], cfg, qcfg, 128)
+                got = []
+                for i in range(64, 72):
+                    lg, cache = lm_decode_step(
+                        p, cache, toks[:, i:i + 1],
+                        torch.tensor([i], device=dev), cfg, qcfg)
+                    got.append(lg[0].float())
+                return _logit_diff(torch.stack(got).cpu(), want.cpu())
+            for what, fn in (("layer", layer), ("logits", logits)):
+                rec = fn()
+                planted = {f: _planted_absorb(f, fn)
+                           for f in _absorb_faults()}
+                rec["layers"] = 1 if what == "layer" else cfg.n_layers
+                _hold_absorbed(f"absorbed decode against the expanded form "
+                               f"({what}) {name}", rec,
+                               MLA_ABSORB[name][what], planted,
+                               MLA_ABSORB_BLIND.get((what, name), ()))
+                out[f"{what} {name}"] = rec
+    del p
+    _free(dev)
+    return out
+
+
+def mla_parity(params, cfg, devs=("cuda", "cpu")):
+    """Teacher-forced logits of one 64-token prompt through ``cfg``'s
+    layers (the lead dense MLA layer), on the card (kernels) and on the
+    CPU (plain versions), same bf16 serving weights, under mxfp8_e4m3."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import lm_apply, tree_map
+    from repro_torch.models.layers import qdense
+    from repro_torch.serve import serving_params
+
+    qcfg = preset("mxfp8_e4m3")
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 7).integers(
+        1, cfg.vocab, (1, 64)))
+    logits, secs = {}, {}
+    with torch.inference_mode():
+        for dev in devs:
+            p = serving_params(tree_map(lambda t: t.to(dev), params), dev)
+            t0 = time.perf_counter()
+            h, _ = lm_apply(p, {"tokens": prompt.to(dev)}, cfg, qcfg)
+            logits[dev] = qdense(p["lm_head"], h, qcfg)[0].float().cpu()
+            secs[dev] = time.perf_counter() - t0
+            del p, h
+    rec = _logit_diff(logits[devs[0]], logits[devs[1]])
+    rec.update(layers=cfg.n_layers, seconds=secs)
+    _limit_check("parity mxfp8_e4m3", rec, MLA_LOGIT_REL, MLA_LOGIT_ATOL)
+    _free(devs[0])
+    return rec
+
+
+def mla_grad_parity(params, cfg, B: int = 2, T: int = 128,
+                    devs=("cuda", "cpu")):
+    """One step's loss and gradients of ``cfg`` (the lead dense MLA layer),
+    card (kernels: the flash dgrad at qk 192 / v 128, the dgrad and wgrad
+    GEMMs) against CPU (plain versions), same fp32 weights and batch,
+    under mxfp8_e4m3: every leaf's gradient non-zero on the card and
+    within MLA_GRAD_REL (relative Frobenius) of the CPU's."""
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.core.diagnostics import tree_leaves_with_path
+    from repro_torch.data import lm_batch
+    from repro_torch.models import lm_loss
+
+    batch = lm_batch(SEED + 8, cfg.vocab, B, T, SEED, device="cpu")
+    qcfg = preset("mxfp8_e4m3")
+    res, secs = {}, {}
+    for dev in devs:
+        p = _fresh(params, dev)
+        leaves = list(tree_leaves_with_path(p))
+        for _, t in leaves:
+            t.requires_grad_(True)
+        t0 = time.perf_counter()
+        loss, _ = lm_loss(p, {k: v.to(dev) for k, v in batch.items()}, cfg,
+                          qcfg)
+        grads = torch.autograd.grad(loss, [t for _, t in leaves])
+        res[dev] = (loss.item(), {path: g.detach().cpu().float()
+                                  for (path, _), g in zip(leaves, grads)})
+        secs[dev] = time.perf_counter() - t0
+        del p, leaves, grads, loss
+        _free(dev)
+    (lc, gc), (lp, gp) = res[devs[0]], res[devs[1]]
+    rel = {"/".join(map(str, path)): (
+        torch.linalg.norm(gc[path] - g)
+        / torch.clamp(torch.linalg.norm(g), min=1e-30)).item()
+        for path, g in gp.items()}
+    zero = ["/".join(map(str, path)) for path in gc
+            if not bool(gc[path].abs().max() > 0)]
+    worst = max(rel, key=rel.get)
+    out = {"batch": B, "seq": T, "loss_cuda": lc, "loss_cpu": lp,
+           "leaves": len(rel), "rel_max": rel[worst], "worst_leaf": worst,
+           "rel": rel, "seconds": secs, "limit": MLA_GRAD_REL}
+    ok = not zero and rel[worst] <= MLA_GRAD_REL
+    print(f"[mla] {'ok  ' if ok else 'FAIL'} grad parity mxfp8_e4m3 "
+          + json.dumps(out), flush=True)
+    if zero:
+        raise AssertionError(f"mla: zero gradients on the card: {zero}")
+    if not ok:
+        raise AssertionError(f"mla: card and CPU gradients disagree at "
+                             f"{worst} ({rel[worst]})")
+    return out
+
+
+def mla_train(params, cfg, dev: str = "cuda", B: int = MLA_B,
+              T: int = MLA_T, steps: int = MLA_STEPS):
+    """The Trainer at B x T for ``steps`` AdamW steps under mxfp8_e4m3 and
+    bf16 from one host copy of the weights, on one batch repeated: loss
+    finite and falling by [train]'s rule, one flash forward and one flash
+    dgrad a step per layer (at qk dim 192, v dim 128), and two 3-step runs
+    from the same state give equal losses and equal bits in every
+    parameter and moment.  Returns the mxfp8_e4m3 run's launch counts.
+    The batch is repeated because at 4 x 512 tokens the spread of the
+    loss between fresh batches (about 0.02) hides what one layer learns in
+    10 steps at lr 1e-3 (about 0.01; first chip reading, PERF.md §6)."""
+    from repro_torch.core import preset
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_loss
+    from repro_torch.train import Trainer, TrainerConfig
+
+    batch = lm_batch(0, cfg.vocab, B, T, SEED, device=dev)
+
+    def trainer(name, total):
+        return Trainer(lambda pp, b, q: lm_loss(pp, b, cfg, q),
+                       _fresh(params, dev), preset(name), lambda s: batch,
+                       tcfg=TrainerConfig(total_steps=total, peak_lr=1e-3,
+                                          log_every=1))
+
+    out = {}
+    for name in ("mxfp8_e4m3", "bf16"):
+        tr = trainer(name, steps)
+        _peak_reset(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist = tr.run(steps)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        losses = [h["loss"] for h in hist]
+        times = [h["time_s"] for h in hist]
+        step_s = sorted(times[1:])[len(times[1:]) // 2]
+        per_step = {k: v / steps for k, v in counts.items()}
+        rec = {"steps": steps, "batch": B, "seq": T, "losses": losses,
+               "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
+               "tokens_per_s": B * T / step_s, "wall_s": wall,
+               "max_memory_allocated": _peak(dev),
+               "launches_per_step": per_step}
+        print(f"[mla] train {name}: {json.dumps(rec)}", flush=True)
+        del tr
+        _free(dev)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"mla {name}: non-finite loss {losses}")
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        if not last < first:
+            raise AssertionError(f"mla {name}: loss did not fall (first 5 "
+                                 f"{first}, last 5 {last})")
+        want = {k: cfg.n_layers for k in ("mx_flash_attention",
+                                          "mx_flash_attention_bwd")}
+        got = {k: per_step.get(k, 0) for k in want}
+        if dev == "cuda" and got != want:
+            raise AssertionError(f"mla {name}: flash launches per step "
+                                 f"{got}, expected {want}")
+        if name == "mxfp8_e4m3":
+            out["counts"] = counts
+        runs = []
+        for _ in range(2):
+            rt = trainer(name, 3)
+            runs.append(([h["loss"] for h in rt.run(3)],
+                         _bits({"params": rt.params, "opt": rt.opt_state})))
+            del rt
+            _free(dev)
+        same = runs[0] == runs[1]
+        print(f"[mla] train {name} replay: losses {runs[0][0]} / "
+              f"{runs[1][0]}, bits equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"mla {name}: replays differ")
+        out[name] = rec
+    return out
+
+
+def phase_mla(rows):
+    """[mla]: the lane GEMMs at deepseek-v2-236b's expert shapes and the
+    2-D GEMM at its decode shapes, then the model at full width, weights
+    drawn on a CUDA generator: serving on MLA_SERVE_LAYERS layers (slab
+    and paged engines), the absorbed decode against the expanded form,
+    then on the lead dense layer alone card-against-CPU logits and
+    gradients, and training.  Returns the launch counts of the serve and
+    train runs."""
+    import torch
+    from repro_torch.core.diagnostics import tree_leaves_with_path
+    from repro_torch.models import lm_init, tree_map
+
+    cfg = mla_config(MLA_SERVE_LAYERS)
+    # serving's capacity: 64-token prompts or 4 decode rows, top-6 of 160
+    # at SERVE_CAPACITY 4 give the 32-row floor of moe._capacity
+    expert_lane_kernels(rows, "mla", cfg, 32, SEED + 25)
+    mla_decode_gemms(rows, cfg)
+    t0 = time.perf_counter()
+    params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                     "cuda")
+    n = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    print(f"[mla] {cfg.name} {cfg.n_layers} layers: {n} parameters, drawn "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    serve = mla_serve(params, cfg)
+    mla_absorbed(params, cfg)
+    # The lead dense layer alone, on the host: the parity's CPU side and
+    # the trainers' fresh copies.
+    cfg1 = mla_config(MLA_TRAIN_LAYERS)
+    one = {k: v for k, v in params.items() if k != "layers"}
+    one["layers"] = params["layers"][:MLA_TRAIN_LAYERS]
+    one = tree_map(lambda t: t.cpu(), one)
+    del params
+    _free("cuda")
+    mla_parity(one, cfg1)
+    mla_grad_parity(one, cfg1)
+    train = mla_train(one, cfg1)
+    return {"serve": serve["slab"], "paged": serve["paged"],
+            "train": train["counts"]}
 
 
 def main() -> int:
@@ -4471,6 +5207,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     moe = phase_moe(rows)
+    _free("cuda")   # moonshot's state is gone before deepseek's is drawn
+    mla = phase_mla(rows)
 
     # "launches": each kernel's count over the run of its own path under
     # mxfp8_e4m3, counts set to 0 just before it (serving for the slice-1
@@ -4480,7 +5218,9 @@ def main() -> int:
     # "launches_snapshot" over the [guard] autopilot's 80 steps and the
     # [snapshot] engines' serving; "launches_moe_serve" and
     # "launches_moe_train" over [moe]'s serving and its 10 mxfp8_e4m3
-    # training steps.
+    # training steps, "launches_moe_paged" over its paged engine's run; "launches_mla_serve", "launches_mla_paged" and
+    # "launches_mla_train" over [mla]'s slab and paged serving and its 10
+    # mxfp8_e4m3 training steps.
     serve_path = ("mx_quantize", "mx_matmul", "mx_flash_attention",
                   "mx_attention_decode")
     train_counts = train["mxfp8_e4m3"]["counts"]
@@ -4507,7 +5247,11 @@ def main() -> int:
             "launches_guard": guard_counts[name],
             "launches_snapshot": snapshot_counts[name],
             "launches_moe_serve": moe["serve"][name],
+            "launches_moe_paged": moe["paged"][name],
             "launches_moe_train": moe["train"][name],
+            "launches_mla_serve": mla["serve"][name],
+            "launches_mla_paged": mla["paged"][name],
+            "launches_mla_train": mla["train"][name],
             "launches_per_prefill": per_prefill[name],
             "launches_per_decode_step": per_decode[name],
             "launches_per_paged_decode_step": per_paged[name],

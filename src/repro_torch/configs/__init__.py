@@ -1,5 +1,5 @@
-"""Model configs of the port: the paper's OLMo family and
-moonshot-v1-16b-a3b (MoE)."""
+"""Model configs of the port: the paper's OLMo family,
+moonshot-v1-16b-a3b (MoE) and deepseek-v2-236b (MLA and MoE)."""
 from .base import get_config
 
 __all__ = ["get_config"]

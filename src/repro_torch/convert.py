@@ -52,19 +52,37 @@ def _mlp(cfg: LMConfig, width: int):
     return p
 
 
+def _mla(cfg: LMConfig):
+    """``mla_init``'s leaves (the q_ln/kv_ln norms are RMSNorms whatever
+    ``cfg.norm`` says, as in the reference)."""
+    D, H = cfg.d_model, cfg.n_heads
+    return {"w_dq": _dense(D, cfg.q_lora), "q_ln": _norm(cfg.q_lora,
+                                                         "rmsnorm"),
+            "w_uq": _dense(cfg.q_lora, H * cfg.qk_dim),
+            "w_dkv": _dense(D, cfg.kv_lora),
+            "kv_ln": _norm(cfg.kv_lora, "rmsnorm"),
+            "w_uk": _dense(cfg.kv_lora, H * cfg.nope_dim),
+            "w_uv": _dense(cfg.kv_lora, H * cfg.v_head),
+            "w_kr": _dense(D, cfg.rope_dim), "wo": _dense(H * cfg.v_head, D)}
+
+
 def _block_shapes(cfg: LMConfig, kind: str = "attn") -> Dict[str, Any]:
     """One block's parameter tree with shapes as leaves: a dense block, or
     on an MoE config's ``"attn"`` layers the routed experts (``moe``) and
-    the shared ones (``shared``)."""
+    the shared ones (``shared``); on an MLA config ``attn`` holds the MLA
+    projections and norms."""
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
-    attn = {"wq": _dense(D, H * dh), "wk": _dense(D, Hkv * dh),
-            "wv": _dense(D, Hkv * dh), "wo": _dense(H * dh, D)}
-    if cfg.qkv_bias:
+    if cfg.mla:
+        attn = _mla(cfg)
+    else:
+        attn = {"wq": _dense(D, H * dh), "wk": _dense(D, Hkv * dh),
+                "wv": _dense(D, Hkv * dh), "wo": _dense(H * dh, D)}
+    if cfg.qkv_bias and not cfg.mla:
         for name, width in (("wq", H * dh), ("wk", Hkv * dh),
                             ("wv", Hkv * dh)):
             attn[name]["b"] = (width,)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cfg.mla:
         attn["q_norm"] = _norm(dh, "rmsnorm")
         attn["k_norm"] = _norm(dh, "rmsnorm")
     block = {"ln1": _norm(D, cfg.norm), "ln2": _norm(D, cfg.norm),

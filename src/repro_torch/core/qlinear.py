@@ -25,6 +25,14 @@ Counterpart of ``repro.core.qlinear``, with the kinds
   "attn_decode_paged"  the same against (N,ps,Hkv,d) page pools through a
                  (B,P) page table ``pages`` with a (B,P*ps) validity mask
                  (see ``kernels.ops.mx_attention_decode_paged``).
+  "attn_qk" / "attn_pv"  a batched product lhs (..., M, K) @ rhs (..., K, N)
+                 of attention operands (MLA's absorbed decode takes its
+                 latent-space context ``pr @ ckv`` this way): with
+                 ``cfg.attn`` both are cast in ``a_fwd``, lhs along K (-1)
+                 and rhs along K (-2), by the quantize kernel on CUDA, and
+                 the product is ``_mm``, as the reference's
+                 ``_kind_attn_bmm`` (a ``jnp`` matmul outside any Pallas
+                 kernel); without ``cfg.attn`` it is ``_mm`` alone.
 
 Dispatch follows the tensor's device: the kernel wrappers launch the CUDA
 kernels for CUDA tensors and run the plain versions for CPU tensors.  The
@@ -196,6 +204,18 @@ def _bmm(lhs: torch.Tensor, rhs: torch.Tensor, cfg: QuantConfig):
     return out.reshape(lead + (E,) + out.shape[1:])
 
 
+def _attn_bmm(lhs: torch.Tensor, rhs: torch.Tensor, cfg: QuantConfig):
+    """"attn_qk" / "attn_pv": ``_mm`` of lhs cast along -1 and rhs along
+    -2 in ``a_fwd`` when ``cfg.attn`` (the straight-through casts carry the
+    gradient), of the raw operands otherwise."""
+    if cfg.attn:
+        lhs = ops.mx_quantize(lhs, cfg.a_fwd, axis=-1, block=cfg.block,
+                              scale_mode=cfg.scale_mode)
+        rhs = ops.mx_quantize(rhs, cfg.a_fwd, axis=-2, block=cfg.block,
+                              scale_mode=cfg.scale_mode)
+    return _mm(lhs, rhs, lhs.dtype)
+
+
 class _Flash(torch.autograd.Function):
     """Flash forward saving (q, k, v, out, lse); the backward is the flash
     dgrad (``repro.core.qlinear._flash_fwd`` / ``_flash_bwd``)."""
@@ -251,7 +271,8 @@ def mx_contract(lhs, rhs, cfg: QuantConfig, *, kind: str = "dense",
                                              valid, _attn_fmt(cfg),
                                              block=cfg.block,
                                              scale_mode=cfg.scale_mode)
+    if kind in ("attn_qk", "attn_pv"):
+        return _attn_bmm(lhs, rhs, cfg)
     raise ValueError(f"unknown mx_contract kind {kind!r}; expected one of "
-                     "['attn_decode', 'attn_decode_paged', 'bmm', 'dense', "
-                     "'flash_attn'] (the other reference kinds come with "
-                     "later slices of the port)")
+                     "['attn_decode', 'attn_decode_paged', 'attn_pv', "
+                     "'attn_qk', 'bmm', 'dense', 'flash_attn']")

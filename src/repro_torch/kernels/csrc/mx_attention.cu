@@ -38,7 +38,11 @@
 //     window mask (they hold the most blocks).  The unnormalized p is
 //     quantized after the rescale by the running max over the whole JAX
 //     tile, so each tile is walked twice in blocks of 64 kv rows (32 for
-//     head dims above 64): pass 1 forms S = Q^ K^T on `mma.sync` m16n8k16
+//     qk head dims above 64).  The tiles are sized by the padded qk head
+//     dim and the padded v head dim apart (FwTile<DQ, DV>): q, k and the
+//     score's k-steps by DQ; v, PV and the output accumulator by DV, so
+//     MLA's qk 192 against v 128 keeps the v side at 128's registers.
+//     Pass 1 forms S = Q^ K^T on `mma.sync` m16n8k16
 //     (bf16 in, fp32 accumulators) and each row's max over the tile, in
 //     registers and then across the four lanes of a quad; pass 2 forms S
 //     again and p = exp(s scale - m_new) (exactly 0 where masked), adds
@@ -115,15 +119,22 @@ constexpr int DEC_MAX_SMEM = 227 * 1024;   // a CTA's opt-in limit
 constexpr float NEG_INF = -1e30f;
 enum { KIND_CAUSAL = 0, KIND_FULL = 1, KIND_WINDOW = 2 };
 
-// Shapes of the forward's tiles for a padded head dim D (a multiple of 32).
-template <int D>
+// The flash kernels' head dims: qk up to FLASH_MAXD, v up to MAXD.
+constexpr int FLASH_MAXD = 192;
+
+// Shapes of the forward's tiles for a padded qk head dim DQ and a padded v
+// head dim DV (multiples of 32): q and k rows are DQ wide, v rows, PV and
+// the output accumulator DV wide.
+template <int DQ, int DV>
 struct FwTile {
-  static constexpr int LD = D + 8;              // smem row stride (bf16)
-  static constexpr int BN = D > 64 ? 32 : 64;   // kv rows of a block
+  static constexpr int LD = DQ + 8;             // q/k smem row stride (bf16)
+  static constexpr int LDV = DV + 8;            // v smem row stride
+  static constexpr int BN = DQ > 64 ? 32 : 64;  // kv rows of a block
   static constexpr int NT = BN / 8;             // n-tiles of S
-  static constexpr int KS = D / 16;             // k-steps over the head dim
-  static constexpr int DT = D / 8;              // n-tiles of PV
-  static constexpr int SMEM = 2 * (FW_BM * LD + 2 * 2 * BN * LD);
+  static constexpr int KS = DQ / 16;            // k-steps over the qk dim
+  static constexpr int DT = DV / 8;             // n-tiles of PV
+  static constexpr int STAGE = BN * (LD + LDV);  // one stage: k, then v
+  static constexpr int SMEM = 2 * (FW_BM * LD + 2 * STAGE);
 };
 }  // namespace
 
@@ -223,19 +234,22 @@ struct FwStep {
   int ts, pass, bs;
 };
 
-template <int D, typename OutT>
+template <int DQ, int DV, typename OutT>
 __global__ void __launch_bounds__(FW_THREADS)
 mx_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, OutT* __restrict__ out,
                     float* __restrict__ lse, int G, int Tq, int Tk, int d,
                     int dv, int kind, int window, int q_offset, int tile_k,
                     int vec, int has_fmt, MxFmt f, float scale) {
-  using C = FwTile<D>;
-  constexpr int LD = C::LD, BN = C::BN, NT = C::NT, DT = C::DT;
+  using C = FwTile<DQ, DV>;
+  constexpr int LD = C::LD, LDV = C::LDV, BN = C::BN, NT = C::NT,
+                DT = C::DT;
   extern __shared__ __align__(16) unsigned char fw_sm[];
   bf16* sQ = (bf16*)fw_sm;          // [64][LD] own rows
-  bf16* stage = sQ + FW_BM * LD;    // 2 x {k, v} [BN][LD]
-  auto st = [&](int s, int which) { return stage + (s * 2 + which) * BN * LD; };
+  bf16* stage = sQ + FW_BM * LD;    // 2 x {k [BN][LD], v [BN][LDV]}
+  auto st = [&](int s, int which) {
+    return stage + s * C::STAGE + which * BN * LD;
+  };
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int bhg = blockIdx.x, bh = bhg / G;
@@ -249,7 +263,8 @@ mx_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (long long)bh * Tk * dv;
   const int qa = r0 + q_offset, qb = r0 + nrows - 1 + q_offset;
 
-  mma_tile<D / 8, LD, FW_THREADS>(sQ, q + row0 * d, d, FW_BM, nrows, d, vec);
+  mma_tile<DQ / 8, LD, FW_THREADS>(sQ, q + row0 * d, d, FW_BM, nrows, d,
+                                   vec);
 
   auto tile_end = [&](int ts) { return min(ts + tile_k, Tk); };
   // The first live block of tile ts at or after bs (the tile's end if none).
@@ -277,11 +292,11 @@ mx_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
   auto load = [&](int s, FwStep c) {
     const int n = min(BN, tile_end(c.ts) - c.bs);   // rows past it: zeros
-    mma_tile<D / 8, LD, FW_THREADS>(st(s, 0), kb + (long long)c.bs * d, d,
-                                    BN, n, d, vec);
+    mma_tile<DQ / 8, LD, FW_THREADS>(st(s, 0), kb + (long long)c.bs * d, d,
+                                     BN, n, d, vec);
     if (c.pass)
-      mma_tile<D / 8, LD, FW_THREADS>(st(s, 1), vb + (long long)c.bs * dv,
-                                      dv, BN, n, dv, vec);
+      mma_tile<DV / 8, LDV, FW_THREADS>(st(s, 1), vb + (long long)c.bs * dv,
+                                        dv, BN, n, dv, vec);
   };
 
   // Two rows a lane: h = 0 is row gq of the warp's 16, h = 1 row gq + 8.
@@ -377,14 +392,14 @@ mx_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int kk = 0; kk < BN / 16; ++kk) {   // Q(p), exact in bf16
           uint32_t a[1][4];
           bw_one_piece(x[2 * kk], x[2 * kk + 1], a[0]);
-          mma_step<DT, LD, 1>(pv, a, st(s, 1), kk, lane);
+          mma_step<DT, LDV, 1>(pv, a, st(s, 1), kk, lane);
         }
       } else {
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) {   // fp32 p as three pieces
           uint32_t a[3][4];
           bw_pieces(x[2 * kk], x[2 * kk + 1], a[0], a[1], a[2]);
-          mma_step<DT, LD, 3>(pv, a, st(s, 1), kk, lane);
+          mma_step<DT, LDV, 3>(pv, a, st(s, 1), kk, lane);
         }
       }
     }
@@ -700,14 +715,14 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
   cluster.sync();   // every rank's shared memory lives until rank 0 is done
 }
 
-template <int D, typename OutT>
+template <int DQ, int DV, typename OutT>
 static int fw_launch(const bf16* q, const bf16* k, const bf16* v, void* out,
                      float* lse, int BH, int G, int Tq, int Tk, int d, int dv,
                      int kind, int window, int q_offset, int tile_k, int vec,
                      int has_fmt, const MxFmt& f, float scale,
                      cudaStream_t s) {
-  constexpr int smem = FwTile<D>::SMEM;
-  auto kern = mx_flash_fwd_kernel<D, OutT>;
+  constexpr int smem = FwTile<DQ, DV>::SMEM;
+  auto kern = mx_flash_fwd_kernel<DQ, DV, OutT>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   const int rc = (int)cudaGetLastError();
@@ -730,7 +745,7 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             int out_fp32, int has_fmt, int mbits,
                             int min_normal_exp, int e_max, float max_normal,
                             int scale_mode, float scale, void* stream) {
-  if (d > MAXD || dv > MAXD || d <= 0 || dv <= 0 || tile_k <= 0 ||
+  if (d > FLASH_MAXD || dv > MAXD || d <= 0 || dv <= 0 || tile_k <= 0 ||
       (has_fmt && !qkv_hat))
     return (int)cudaErrorInvalidValue;
   const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
@@ -769,18 +784,19 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
   const int vec = d % 8 == 0 && dv % 8 == 0 && align % 16 == 0;
   const int wide = max(d, dv);
   float* ll = (float*)lse;
-#define FW_CASE(D)                                                          \
+#define FW_CASE(DQ, DV)                                                     \
   return out_fp32                                                           \
-             ? fw_launch<D, float>(qq, kk, vv, out, ll, BH, G, Tq, Tk, d,   \
-                                   dv, kind, window, q_offset, tile_k, vec, \
-                                   has_fmt, f, scale, s)                    \
-             : fw_launch<D, bf16>(qq, kk, vv, out, ll, BH, G, Tq, Tk, d,    \
-                                  dv, kind, window, q_offset, tile_k, vec,  \
-                                  has_fmt, f, scale, s)
-  if (wide <= 32) FW_CASE(32);
-  if (wide <= 64) FW_CASE(64);
-  if (wide <= 96) FW_CASE(96);
-  FW_CASE(128);
+             ? fw_launch<DQ, DV, float>(qq, kk, vv, out, ll, BH, G, Tq, Tk, \
+                                        d, dv, kind, window, q_offset,      \
+                                        tile_k, vec, has_fmt, f, scale, s)  \
+             : fw_launch<DQ, DV, bf16>(qq, kk, vv, out, ll, BH, G, Tq, Tk,  \
+                                       d, dv, kind, window, q_offset,       \
+                                       tile_k, vec, has_fmt, f, scale, s)
+  if (d > MAXD) FW_CASE(192, 128);   // MLA: qk 192 (nope + rope), v 128
+  if (wide <= 32) FW_CASE(32, 32);
+  if (wide <= 64) FW_CASE(64, 64);
+  if (wide <= 96) FW_CASE(96, 96);
+  FW_CASE(128, 128);
 #undef FW_CASE
 }
 

@@ -22,8 +22,11 @@
 //     with `mx_warp_quant` (the shared cast) into a bf16 scratch, where the
 //     cast values are exact.  The raw q and k stay for the gradient
 //     products (straight-through).  bf16 mode reads q and k in place.
+//   * Tiles are sized by the padded qk head dim and the padded v head dim
+//     apart (BwTile<DQ, DV>): q, k, dq and dk by DQ, v, dout and dv by DV
+//     (MLA: 192 against 128).
 //   * dQ: one CTA per (bh, g, 64 query rows), 4 warps of 16 rows, looping
-//     over the live kv blocks (64 rows; 32 for head dims above 64).
+//     over the live kv blocks (64 rows; 32 for qk head dims above 64).
 //   * dK/dV: one CTA per (bh, 64 kv rows), looping over g and the live q
 //     blocks inside itself, so the G sum of dk and dv needs no atomics.
 //   Both passes recompute S = Q^ K^T and dP = dO V^T with `mma.sync`
@@ -57,16 +60,24 @@ namespace {
 constexpr int BW_THREADS = 128;   // 4 warps of 16 own rows
 constexpr int BW_BM = 64;         // own rows of a CTA
 
-// Shapes of the tiles for a padded head dim D (a multiple of 32).
-template <int D>
+constexpr int BW_MAXD = 192;      // qk head dim (v up to 128)
+
+// Shapes of the tiles for a padded qk head dim DQ and a padded v head dim
+// DV (multiples of 32): q, k and their gradients are DQ wide; v, dout and
+// dv are DV wide.
+template <int DQ, int DV>
 struct BwTile {
-  static constexpr int LD = D + 8;              // smem row stride (bf16)
-  static constexpr int BN = D > 64 ? 32 : 64;   // rows of a visited block
+  static constexpr int LD = DQ + 8;             // q/k smem row stride (bf16)
+  static constexpr int LDV = DV + 8;            // v/dout smem row stride
+  static constexpr int BN = DQ > 64 ? 32 : 64;  // rows of a visited block
   static constexpr int NT = BN / 8;             // n-tiles of S and dP
-  static constexpr int KS = D / 16;             // k-steps over the head dim
-  static constexpr int DT = D / 8;              // n-tiles of a gradient
-  static constexpr int SMEM = 2 * (2 * BW_BM * LD + 2 * 3 * BN * LD)
-                              + 4 * 2 * 2 * BN;
+  static constexpr int KS = DQ / 16;            // k-steps over the qk dim
+  static constexpr int KSV = DV / 16;           // k-steps over the v dim
+  static constexpr int DT = DQ / 8;             // n-tiles of dq and dk
+  static constexpr int DTV = DV / 8;            // n-tiles of dv
+  static constexpr int OWN = BW_BM * (LD + LDV);     // own rows: two tiles
+  static constexpr int STAGE = BN * (2 * LD + LDV);  // a stage: 3 tiles
+  static constexpr int SMEM = 2 * (OWN + 2 * STAGE) + 4 * 2 * 2 * BN;
 };
 }  // namespace
 
@@ -100,7 +111,7 @@ __global__ void mx_attn_bwd_prep_kernel(
   }
 }
 
-template <int D, typename OutT>
+template <int DQ, int DV, typename OutT>
 __global__ void __launch_bounds__(BW_THREADS)
 mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
                       const bf16* __restrict__ k, const bf16* __restrict__ v,
@@ -109,12 +120,12 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
                       const float* __restrict__ delta, OutT* __restrict__ dq,
                       int G, int Tq, int Tk, int d, int dv, int kind,
                       int window, int q_offset, int vec, float scale) {
-  using C = BwTile<D>;
-  constexpr int LD = C::LD, BN = C::BN;
+  using C = BwTile<DQ, DV>;
+  constexpr int LD = C::LD, LDV = C::LDV, BN = C::BN;
   extern __shared__ __align__(16) unsigned char bw_sm[];
   bf16* sQ = (bf16*)bw_sm;          // [64][LD] own rows, scores operand
-  bf16* sDO = sQ + BW_BM * LD;      // [64][LD] own rows of dout
-  bf16* stage = sDO + BW_BM * LD;   // 2 x {k^, k, v} [BN][LD]
+  bf16* sDO = sQ + BW_BM * LD;      // [64][LDV] own rows of dout
+  bf16* stage = sDO + BW_BM * LDV;  // 2 x {k^, k [BN][LD], v [BN][LDV]}
   const bool sep = kh != k;         // MX: the cast k has its own tile
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
@@ -124,10 +135,12 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
   const bf16* khb = kh + (long long)bh * Tk * d;
   const bf16* kb = k + (long long)bh * Tk * d;
   const bf16* vb = v + (long long)bh * Tk * dv;
-  auto st = [&](int s, int which) { return stage + (s * 3 + which) * BN * LD; };
+  auto st = [&](int s, int which) {
+    return stage + s * C::STAGE + which * BN * LD;
+  };
 
   mma_tile<C::DT, LD, BW_THREADS>(sQ, qh + row0 * d, d, BW_BM, nrows, d, vec);
-  mma_tile<C::DT, LD, BW_THREADS>(sDO, dout + row0 * dv,
+  mma_tile<C::DTV, LDV, BW_THREADS>(sDO, dout + row0 * dv,
       dv, BW_BM, nrows, dv, vec);
   const int qa = r0 + q_offset, qb = r0 + nrows - 1 + q_offset;
   auto next_live = [&](int bs) {
@@ -141,7 +154,7 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
         khb + (long long)bs * d, d, BN, n, d, vec);
     mma_tile<C::DT, LD, BW_THREADS>(st(s, 1),
         kb + (long long)bs * d, d, BN, n, d, vec);
-    mma_tile<C::DT, LD, BW_THREADS>(st(s, 2),
+    mma_tile<C::DTV, LDV, BW_THREADS>(st(s, 2),
         vb + (long long)bs * dv, dv, BN, n, dv, vec);
   };
 
@@ -169,7 +182,7 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
     __syncthreads();
     float sc[C::NT][4], dp[C::NT][4];
     mma_scores<C::NT, C::KS, LD>(sc, sQ, st(s, sep ? 0 : 1), warp, lane);
-    mma_scores<C::NT, C::KS, LD>(dp, sDO, st(s, 2), warp, lane);
+    mma_scores<C::NT, C::KSV, LDV>(dp, sDO, st(s, 2), warp, lane);
 #pragma unroll
     for (int j = 0; j < C::NT; ++j)
 #pragma unroll
@@ -206,7 +219,7 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
     }
 }
 
-template <int D, typename OutT>
+template <int DQ, int DV, typename OutT>
 __global__ void __launch_bounds__(BW_THREADS)
 mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
                        const bf16* __restrict__ kh,
@@ -217,13 +230,13 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
                        OutT* __restrict__ dvo, int G, int Tq, int Tk, int d,
                        int dv, int kind, int window, int q_offset, int vec,
                        float scale) {
-  using C = BwTile<D>;
-  constexpr int LD = C::LD, BN = C::BN;
+  using C = BwTile<DQ, DV>;
+  constexpr int LD = C::LD, LDV = C::LDV, BN = C::BN;
   extern __shared__ __align__(16) unsigned char bw_sm[];
   bf16* sK = (bf16*)bw_sm;          // [64][LD] own rows, scores operand
-  bf16* sV = sK + BW_BM * LD;       // [64][LD] own rows of v
-  bf16* stage = sV + BW_BM * LD;    // 2 x {q^, q, dout} [BN][LD]
-  float* lse_s = (float*)(stage + 2 * 3 * BN * LD);   // [2][BN]
+  bf16* sV = sK + BW_BM * LD;       // [64][LDV] own rows of v
+  bf16* stage = sV + BW_BM * LDV;   // 2 x {q^, q [BN][LD], dout [BN][LDV]}
+  float* lse_s = (float*)(stage + 2 * C::STAGE);      // [2][BN]
   float* dl_s = lse_s + 2 * BN;                       // [2][BN]
   const bool sep = qh != q;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -231,10 +244,12 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
   const int bh = blockIdx.y, j0 = blockIdx.x * BW_BM;
   const int nrows = min(BW_BM, Tk - j0);
   const long long krow0 = (long long)bh * Tk + j0;
-  auto st = [&](int s, int which) { return stage + (s * 3 + which) * BN * LD; };
+  auto st = [&](int s, int which) {
+    return stage + s * C::STAGE + which * BN * LD;
+  };
 
   mma_tile<C::DT, LD, BW_THREADS>(sK, kh + krow0 * d, d, BW_BM, nrows, d, vec);
-  mma_tile<C::DT, LD, BW_THREADS>(sV, v + krow0 * dv,
+  mma_tile<C::DTV, LDV, BW_THREADS>(sV, v + krow0 * dv,
       dv, BW_BM, nrows, dv, vec);
   const int ka = j0, kb = j0 + nrows - 1;
   const int nqb = (Tq + BN - 1) / BN, total = G * nqb;
@@ -253,7 +268,7 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     if (sep) mma_tile<C::DT, LD, BW_THREADS>(st(s, 0),
         qh + qrow0 * d, d, BN, n, d, vec);
     mma_tile<C::DT, LD, BW_THREADS>(st(s, 1), q + qrow0 * d, d, BN, n, d, vec);
-    mma_tile<C::DT, LD, BW_THREADS>(st(s, 2),
+    mma_tile<C::DTV, LDV, BW_THREADS>(st(s, 2),
         dout + qrow0 * dv, dv, BN, n, dv, vec);
     for (int i = threadIdx.x; i < BN; i += BW_THREADS) {
       lse_s[s * BN + i] = i < n ? lse[qrow0 + i] : 0.f;
@@ -261,11 +276,15 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     }
   };
 
-  float dk_acc[C::DT][4], dv_acc[C::DT][4];
+  float dk_acc[C::DT][4], dv_acc[C::DTV][4];
 #pragma unroll
   for (int j = 0; j < C::DT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < C::DTV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv_acc[j][e] = 0.f;
 
   int it = next_live(0), s = 0;
   if (it < total) load(0, it);
@@ -279,7 +298,7 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     const int bs = (it % nqb) * BN;
     float pt[C::NT][4], dst[C::NT][4];   // P^T and dP^T, then dS^T
     mma_scores<C::NT, C::KS, LD>(pt, sK, st(s, sep ? 0 : 1), warp, lane);
-    mma_scores<C::NT, C::KS, LD>(dst, sV, st(s, 2), warp, lane);
+    mma_scores<C::NT, C::KSV, LDV>(dst, sV, st(s, 2), warp, lane);
 #pragma unroll
     for (int j = 0; j < C::NT; ++j)
 #pragma unroll
@@ -299,7 +318,7 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     for (int kk = 0; kk < C::NT / 2; ++kk) {   // dv += P^T dO, dk += dS^T Q
       uint32_t a[3][4];
       bw_pieces(pt[2 * kk], pt[2 * kk + 1], a[0], a[1], a[2]);
-      mma_step<C::DT, LD, 3>(dv_acc, a, st(s, 2), kk, lane);
+      mma_step<C::DTV, LDV, 3>(dv_acc, a, st(s, 2), kk, lane);
       bw_pieces(dst[2 * kk], dst[2 * kk + 1], a[0], a[1], a[2]);
       mma_step<C::DT, LD, 3>(dk_acc, a, st(s, 1), kk, lane);
     }
@@ -314,23 +333,30 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     for (int e = 0; e < 4; ++e) {
       const int kr = warp * 16 + gq + 8 * (e >> 1);
       const int col = 8 * j + 2 * tq + (e & 1);
-      if (kr >= nrows) continue;
-      if (col < d) mx_store<OutT>(dk + (krow0 + kr) * d + col, dk_acc[j][e]);
-      if (col < dv)
+      if (kr < nrows && col < d)
+        mx_store<OutT>(dk + (krow0 + kr) * d + col, dk_acc[j][e]);
+    }
+#pragma unroll
+  for (int j = 0; j < C::DTV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kr = warp * 16 + gq + 8 * (e >> 1);
+      const int col = 8 * j + 2 * tq + (e & 1);
+      if (kr < nrows && col < dv)
         mx_store<OutT>(dvo + (krow0 + kr) * dv + col, dv_acc[j][e]);
     }
 }
 
-template <int D, typename OutT>
+template <int DQ, int DV, typename OutT>
 static int bw_launch(const bf16* q, const bf16* k, const bf16* v,
                      const bf16* dout, const bf16* qh, const bf16* kh,
                      const float* lse, const float* delta, void* dq,
                      void* dk, void* dv_, int BH, int G, int Tq, int Tk,
                      int d, int dv, int kind, int window, int q_offset,
                      int vec, float scale, cudaStream_t s) {
-  constexpr int smem = BwTile<D>::SMEM;
-  auto dq_k = mx_attn_bwd_dq_kernel<D, OutT>;
-  auto dkv_k = mx_attn_bwd_dkv_kernel<D, OutT>;
+  constexpr int smem = BwTile<DQ, DV>::SMEM;
+  auto dq_k = mx_attn_bwd_dq_kernel<DQ, DV, OutT>;
+  auto dkv_k = mx_attn_bwd_dkv_kernel<DQ, DV, OutT>;
   cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   cudaFuncSetAttribute(dkv_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -364,7 +390,7 @@ extern "C" int mx_flash_bwd(const void* q, const void* k, const void* v,
                             int has_fmt, int mbits, int min_normal_exp,
                             int e_max, float max_normal, int scale_mode,
                             float scale, void* stream) {
-  if (d > 128 || dv > 128 || d <= 0 || dv <= 0 || (has_fmt && !qk_hat))
+  if (d > BW_MAXD || dv > 128 || d <= 0 || dv <= 0 || (has_fmt && !qk_hat))
     return (int)cudaErrorInvalidValue;
   const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
                          scale_mode);
@@ -386,21 +412,20 @@ extern "C" int mx_flash_bwd(const void* q, const void* k, const void* v,
                           | (uintptr_t)dout | (uintptr_t)sq | (uintptr_t)sk;
   const int vec = d % 8 == 0 && dv % 8 == 0 && align % 16 == 0;
   const int wide = max(d, dv);
-#define BW_CASE(D)                                                           \
+#define BW_CASE(DQ, DV)                                                      \
   return out_fp32                                                            \
-             ? bw_launch<D, float>(qq, kk, (const bf16*)v,                   \
-                                   (const bf16*)dout, sq, sk,                \
-                                   (const float*)lse, (const float*)delta,   \
-                                   dq, dk, dv_, BH, G, Tq, Tk, d, dv, kind,  \
-                                   window, q_offset, vec, scale, s)          \
-             : bw_launch<D, bf16>(qq, kk, (const bf16*)v, (const bf16*)dout, \
-                                  sq, sk, (const float*)lse,                 \
-                                  (const float*)delta, dq, dk, dv_, BH, G,   \
-                                  Tq, Tk, d, dv, kind, window, q_offset,     \
-                                  vec, scale, s)
-  if (wide <= 32) BW_CASE(32);
-  if (wide <= 64) BW_CASE(64);
-  if (wide <= 96) BW_CASE(96);
-  BW_CASE(128);
+             ? bw_launch<DQ, DV, float>(                                     \
+                   qq, kk, (const bf16*)v, (const bf16*)dout, sq, sk,        \
+                   (const float*)lse, (const float*)delta, dq, dk, dv_, BH,  \
+                   G, Tq, Tk, d, dv, kind, window, q_offset, vec, scale, s)  \
+             : bw_launch<DQ, DV, bf16>(                                      \
+                   qq, kk, (const bf16*)v, (const bf16*)dout, sq, sk,        \
+                   (const float*)lse, (const float*)delta, dq, dk, dv_, BH,  \
+                   G, Tq, Tk, d, dv, kind, window, q_offset, vec, scale, s)
+  if (d > 128) BW_CASE(192, 128);   // MLA: qk 192 (nope + rope), v 128
+  if (wide <= 32) BW_CASE(32, 32);
+  if (wide <= 64) BW_CASE(64, 64);
+  if (wide <= 96) BW_CASE(96, 96);
+  BW_CASE(128, 128);
 #undef BW_CASE
 }

@@ -528,6 +528,19 @@ def mx_matmul_wgrad_lanes(x: torch.Tensor, dy: torch.Tensor,
     return dw
 
 
+#: The flash kernels' head dims: qk up to FLASH_MAX_D (MLA's nope + rope
+#: at DeepSeek-V2's widths, 128 + 64) and v up to FLASH_MAX_DV.
+FLASH_MAX_D, FLASH_MAX_DV = 192, 128
+
+
+def _check_flash_dims(name: str, d: int, dv: int) -> None:
+    if d > FLASH_MAX_D or dv > FLASH_MAX_DV:
+        raise NotImplementedError(
+            f"{name}: qk head dim {d}, v head dim {dv}: the flash kernels "
+            f"take qk up to {FLASH_MAX_D} and v up to {FLASH_MAX_DV}; wider "
+            "heads (recurrentgemma's 256) are ROADMAP Queue A item 4")
+
+
 def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        fmt: Optional[ElementFormat], spec: AttnSpec,
                        block: int = MX_BLOCK, scale_mode: str = "floor",
@@ -555,8 +568,7 @@ def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (BH, Tk, d) or v.shape[:2] != (BH, Tk):
         raise ValueError(f"mx_flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if d > 128 or dv > 128:
-        raise NotImplementedError("mx_flash_attention: head dims up to 128")
+    _check_flash_dims("mx_flash_attention", d, dv)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((BH, G, Tq, dv), dtype=odt, device=q.device)
     lse = torch.empty((BH, G, Tq), dtype=torch.float32, device=q.device)
@@ -602,9 +614,7 @@ def mx_flash_attention_bwd(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"mx_flash_attention_bwd: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}, "
                          f"{tuple(dout.shape)}, {tuple(lse.shape)}")
-    if d > 128 or dv > 128:
-        raise NotImplementedError("mx_flash_attention_bwd: head dims up to "
-                                  "128")
+    _check_flash_dims("mx_flash_attention_bwd", d, dv)
     odt = out_dtype or torch.bfloat16
     if odt not in (torch.bfloat16, torch.float32):
         raise TypeError(f"mx_flash_attention_bwd: out_dtype {odt}")

@@ -1,28 +1,32 @@
 """Decoder LM assembly: training forward and loss, prefill and decode.
 
 Counterpart of ``repro.models.transformer`` for ``"attn"`` blocks, dense
-or MoE.  Parameters are a plain dict with per-layer entries:
+or MoE, with multi-head attention or MLA (``models.mla``).  Parameters
+are a plain dict with per-layer entries:
 
     {"embed": {"table"}, "layers": [block, ...], "final_ln": {...},
      "lm_head": {"w"}}
 
 where each ``block`` has the reference's per-block names (``ln1``, ``attn``,
-``ln2``, and ``mlp``, or on an MoE layer ``moe`` and ``shared``).  An MoE
-config's first ``first_dense`` layers are dense (the reference's leading
-``"dense_attn"`` group).  Layer ``i`` is the reference's stacked group
-entry ``blocks[g]["b{j}"][r]`` in plan order (see
-``convert.params_from_jax``).
-The decode cache is a list with one ``{"k", "v"}`` dict of
-(B, S, Hkv, d) bf16 tensors per layer, updated in place; the paged cache
-(``init_cache_paged``) is the same list of (N, ps, Hkv, d) page pools,
-addressed through one (B, P) page table.  Layers run as a
-Python loop over that list; the reference's activation checkpointing
-(``remat``) is not ported yet: at olmo-paper's size the activations fit.
+``ln2``, and ``mlp``, or on an MoE layer ``moe`` and ``shared``); on an MLA
+config ``attn`` holds ``mla_init``'s leaves.  An MoE config's first
+``first_dense`` layers are dense (the reference's leading ``"dense_attn"``
+group).  Layer ``i`` is the reference's stacked group entry
+``blocks[g]["b{j}"][r]`` in plan order (see ``convert.params_from_jax``).
+The decode cache is a list with one ``{"k", "v"}`` dict of (B, S, Hkv, d)
+bf16 tensors per layer (on MLA, ``{"ckv", "kr"}`` latents of (B, S,
+kv_lora) and (B, S, rope_dim)), updated in place; the paged cache
+(``init_cache_paged``) is the same list with (N, ps, ...) page pools in
+place of the (B, S, ...) rows, addressed through one (B, P) page table.
+Layers run as a Python loop over that list; the reference's activation
+checkpointing (``remat``) is not ported yet: at olmo-paper's size the
+activations fit.
 
-MLA, recurrent, xLSTM, windowed, encoder-decoder, frontend and
+Recurrent, xLSTM, windowed, encoder-decoder, frontend and
 tied-embedding configs raise ``NotImplementedError``: they come with a
-later slice of the port (ROADMAP Queue A item 4).  MoE configs prefill
-whole: ``lm_prefill_chunk`` raises for them (``chunk_supported``).
+later slice of the port (ROADMAP Queue A item 4).  MoE and MLA configs
+prefill whole: ``lm_prefill_chunk`` raises for them (``chunk_supported``),
+and the paged engine pages their cache after a whole-prompt prefill.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ from .attention import (attention, attention_decode, attention_decode_paged,
                         attn_init, paged_valid_mask, paged_write_slots)
 from .layers import (apply_norm, dense_init, embed_init, embed_lookup,
                      norm_init, qdense)
+from .mla import (mla_apply, mla_decode, mla_decode_paged, mla_init,
+                  mla_prefill)
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init
 
@@ -95,6 +101,11 @@ class LMConfig:
     kv_chunk: int = 1024
     loss_chunk: int = 2048
 
+    @property
+    def qk_dim(self) -> int:
+        """The width of a query and key head (MLA's ``nope + rope_dim``)."""
+        return (self.nope_dim + self.rope_dim) if self.mla else self.d_head
+
     def attn_spec(self, cache_len: int = 0) -> AttnSpec:
         """Causal prefill AttnSpec with the config's tiles."""
         return dataclasses.replace(
@@ -105,8 +116,6 @@ class LMConfig:
 def check_supported(cfg: LMConfig) -> None:
     """Raise for configs outside this slice of the port."""
     later = []
-    if cfg.mla:
-        later.append("MLA")
     if set(cfg.block_pattern) != {"attn"}:
         later.append(f"block kinds {sorted(set(cfg.block_pattern))}")
     if cfg.window:
@@ -118,9 +127,9 @@ def check_supported(cfg: LMConfig) -> None:
     if later:
         raise NotImplementedError(
             f"config {cfg.name!r} needs {', '.join(later)}: the port serves "
-            "'attn' stacks, dense or MoE; the other architectures come with "
-            "the later slice that ports MLA and the recurrent blocks "
-            "(ROADMAP Queue A item 4)")
+            "'attn' stacks, dense or MoE, with MHA/GQA or MLA; the other "
+            "architectures come with a later slice that ports the recurrent "
+            "blocks (ROADMAP Queue A item 4)")
 
 
 def block_plan(cfg: LMConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -165,10 +174,15 @@ def _block_init(generator: torch.Generator, kind: str, cfg: LMConfig):
     L = cfg.n_layers
     gd = generator.device
     p = {"ln1": norm_init(cfg.d_model, cfg.norm, gd),
-         "ln2": norm_init(cfg.d_model, cfg.norm, gd),
-         "attn": attn_init(generator, cfg.d_model, cfg.n_heads,
-                           cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
-                           cfg.qkv_bias, L)}
+         "ln2": norm_init(cfg.d_model, cfg.norm, gd)}
+    if cfg.mla:
+        p["attn"] = mla_init(generator, cfg.d_model, cfg.n_heads, cfg.q_lora,
+                             cfg.kv_lora, cfg.nope_dim, cfg.rope_dim,
+                             cfg.v_head, L)
+    else:
+        p["attn"] = attn_init(generator, cfg.d_model, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.d_head, cfg.qk_norm,
+                              cfg.qkv_bias, L)
     if cfg.n_experts and kind == "attn":
         p["moe"] = moe_init(generator, cfg.d_model, cfg.moe_dff,
                             cfg.n_experts, cfg.act, L)
@@ -206,26 +220,34 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def _cache_shapes(cfg: LMConfig, lead: Tuple[int, int]) -> dict:
+    """One layer's decode-cache leaves with ``lead`` = (B, S) rows or
+    (N, ps) pages in front: K/V heads, or MLA's latents."""
+    if cfg.mla:
+        return {"ckv": lead + (cfg.kv_lora,), "kr": lead + (cfg.rope_dim,)}
+    shp = lead + (cfg.n_kv_heads, cfg.d_head)
+    return {"k": shp, "v": shp}
+
+
 def init_cache(cfg: LMConfig, B: int, S: int, device=None) -> List[dict]:
-    """Zeroed (B, S, Hkv, d) bf16 K/V per layer."""
+    """Zeroed bf16 decode cache per layer: (B, S, Hkv, d) K/V, or on MLA
+    the (B, S, kv_lora) / (B, S, rope_dim) latents."""
     check_supported(cfg)
     device = resolve_device(device)
-    shp = (B, S, cfg.n_kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shp, dtype=torch.bfloat16, device=device),
-             "v": torch.zeros(shp, dtype=torch.bfloat16, device=device)}
+    return [{n: torch.zeros(shp, dtype=torch.bfloat16, device=device)
+             for n, shp in _cache_shapes(cfg, (B, S)).items()}
             for _ in range(cfg.n_layers)]
 
 
 def init_cache_paged(cfg: LMConfig, n_pages: int, page_size: int,
                      device=None) -> List[dict]:
-    """Paged decode cache: one zeroed (N, ps, Hkv, d) bf16 K/V pool pair
-    per layer, shared by every row through the engine's page table (every
-    ported layer pages)."""
+    """Paged decode cache: per layer, zeroed bf16 (N, ps, ...) pools of its
+    leaves (K/V heads, or MLA's latents), shared by every row through the
+    engine's page table (every ported layer pages)."""
     check_supported(cfg)
     device = resolve_device(device)
-    shp = (n_pages, page_size, cfg.n_kv_heads, cfg.d_head)
-    return [{"k": torch.zeros(shp, dtype=torch.bfloat16, device=device),
-             "v": torch.zeros(shp, dtype=torch.bfloat16, device=device)}
+    return [{n: torch.zeros(shp, dtype=torch.bfloat16, device=device)
+             for n, shp in _cache_shapes(cfg, (n_pages, page_size)).items()}
             for _ in range(cfg.n_layers)]
 
 
@@ -246,6 +268,17 @@ def _block_rest(h, lp, cfg: LMConfig, qcfg: QuantConfig, a,
     return h + y, metrics["aux_loss"]
 
 
+def _mla_kw(cfg: LMConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, nope=cfg.nope_dim,
+                rope_dim=cfg.rope_dim, v_head=cfg.v_head,
+                rope_theta=cfg.rope_theta)
+
+
+def _attn_kw(cfg: LMConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
+                rope_theta=cfg.rope_theta)
+
+
 def lm_apply(params, batch, cfg: LMConfig, qcfg: QuantConfig):
     """Forward to the final hidden states (B, T, D) in bf16.  Returns
     (hidden, aux_loss): the MoE layers' load-balance losses summed (0 for
@@ -259,10 +292,10 @@ def lm_apply(params, batch, cfg: LMConfig, qcfg: QuantConfig):
     aux = torch.zeros((), dtype=torch.float32, device=tok.device)
     for lp in params["layers"]:
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
-        a = attention(lp["attn"], hn, qcfg=qcfg, n_heads=cfg.n_heads,
-                      n_kv=cfg.n_kv_heads, d_head=cfg.d_head,
-                      positions=positions, spec=spec,
-                      rope_theta=cfg.rope_theta)
+        apply = mla_apply if cfg.mla else attention
+        kw = _mla_kw(cfg) if cfg.mla else _attn_kw(cfg)
+        a = apply(lp["attn"], hn, qcfg=qcfg, positions=positions, spec=spec,
+                  **kw)
         h, la = _block_rest(h, lp, cfg, qcfg, a, cfg.capacity_factor)
         if la is not None:
             aux = aux + la
@@ -313,10 +346,10 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
     caches = []
     for lp in params["layers"]:
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
-        a, c = attention_prefill(lp["attn"], hn, qcfg=qcfg,
-                                 n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                                 d_head=cfg.d_head, positions=positions,
-                                 spec=spec, rope_theta=cfg.rope_theta)
+        prefill = mla_prefill if cfg.mla else attention_prefill
+        kw = _mla_kw(cfg) if cfg.mla else _attn_kw(cfg)
+        a, c = prefill(lp["attn"], hn, qcfg=qcfg, positions=positions,
+                       spec=spec, **kw)
         h, _ = _block_rest(h, lp, cfg, qcfg, a, SERVE_CAPACITY)
         caches.append(c)
     h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
@@ -343,9 +376,8 @@ def lm_prefill_chunk(params, tokens: torch.Tensor, prior: List[dict],
     if not chunk_supported(cfg):
         raise NotImplementedError(
             f"config {cfg.name!r}: chunked prefill covers pure global-"
-            "attention decoder stacks; MoE configs prefill whole, and the "
-            "paged cache's whole-prompt path (pagify) comes with ROADMAP "
-            "Queue A item 4")
+            "attention decoder stacks; MoE and MLA configs prefill whole "
+            "(the paged engine pages their cache afterwards)")
     B, C = tokens.shape
     h = embed_lookup(params["embed"], tokens)
     positions = torch.arange(start, start + C,
@@ -377,21 +409,23 @@ def lm_decode_step(params, cache: List[dict], tok: torch.Tensor,
     returns (logits (B, vocab), cache).  With ``page_table`` ((B, P)
     int32), ``cache`` is ``init_cache_paged``'s pools and every layer
     decodes through the table; ``live`` (n,) long names the rows whose
-    tail page is mapped (see ``paged_write_slots``)."""
+    tail page is mapped (see ``paged_write_slots``).  An MLA config decodes
+    in the absorbed form on its latent cache (``mla_decode`` /
+    ``mla_decode_paged``)."""
     check_supported(cfg)
     B = tok.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.long, device=tok.device)
     pos = pos.expand(B) if pos.ndim == 0 else pos
-    kw = dict(qcfg=qcfg, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-              d_head=cfg.d_head, pos=pos, rope_theta=cfg.rope_theta)
-    decode = attention_decode
+    kw = dict(qcfg=qcfg, pos=pos,
+              **(_mla_kw(cfg) if cfg.mla else _attn_kw(cfg)))
+    decode = mla_decode if cfg.mla else attention_decode
     if page_table is not None:
         # The write slots and the mask are the same in every layer.
-        ps = cache[0]["k"].shape[1]
+        ps = next(iter(cache[0].values())).shape[1]
         kw.update(page_table=page_table,
                   slots=paged_write_slots(page_table, pos, ps, live),
                   valid=paged_valid_mask(page_table, pos, ps))
-        decode = attention_decode_paged
+        decode = mla_decode_paged if cfg.mla else attention_decode_paged
     h = embed_lookup(params["embed"], tok)
     for lp, lc in zip(params["layers"], cache):
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)

@@ -26,8 +26,10 @@ maps only the pages its length needs, prompts prefill one chunk per
 ``step()`` interleaved with live decodes (``lm_prefill_chunk``), full
 prompt pages are shared across requests by content, and page pressure is
 resolved by LRU eviction of unreferenced cached pages or LIFO preemption of
-the newest request.  Decode goes through the page table (the paged decode
-kernel on CUDA).
+the newest request.  Configs that cannot prefill in chunks (MoE, MLA)
+prefill each prompt whole and page the resulting cache ("pagify").  Decode
+goes through the page table (the paged decode kernel on CUDA; MLA's
+absorbed decode gathers its latent pages).
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; raises without CUDA.
 """
@@ -164,8 +166,8 @@ class ServeEngine:
         """Copy a one-request cache into batch row ``slot`` (whole row, so
         a finished request's stale entries are overwritten)."""
         for full, one in zip(self.cache, one_cache):
-            full["k"][slot].copy_(one["k"][0])
-            full["v"][slot].copy_(one["v"][0])
+            for name, leaf in full.items():
+                leaf[slot].copy_(one[name][0])
 
     @torch.inference_mode()
     def _admit(self) -> List[Request]:
@@ -297,8 +299,13 @@ class PagedServeEngine(ServeEngine):
     chunk of ``min(2 * page_size, max_len)`` tokens per ``step()`` (one per
     idle row when rows are idle), interleaved with live decodes.  Prompts
     are not bucketed: chunking takes its place.  Configs that cannot chunk
-    (``chunk_supported``: MoE) raise, since the whole-prompt path that
-    pages their cache afterwards is not ported.
+    (``chunk_supported``: MoE, MLA) prefill the whole prompt in one
+    ``step()`` and write the one-row cache into the request's pages
+    ("pagify", the reference's path), every page of the request, shared
+    prefix pages included, as the reference writes them.  Every leaf of
+    the cache is a page pool (every ported layer kind pages); a pool's
+    at-rest rule is "k" or "v" by its name, and "raw" (stored as it is)
+    for MLA's latents.
     """
 
     def __init__(self, params, cfg: LMConfig, qcfg: QuantConfig, *,
@@ -310,12 +317,7 @@ class PagedServeEngine(ServeEngine):
                              f"page_size {page_size} (the page table views "
                              "a whole number of pages per row)")
         check_supported(cfg)
-        if not chunk_supported(cfg):
-            raise NotImplementedError(
-                f"config {cfg.name!r} cannot prefill in chunks (MoE routing "
-                "is batch-level): the paged engine's whole-prompt path "
-                "(pagify) comes with ROADMAP Queue A item 4; serve it with "
-                "ServeEngine")
+        self.chunk = chunk_supported(cfg)
         self.n_pages = n_pages
         self.page_size = page_size
         self.P = max_len // page_size
@@ -333,10 +335,13 @@ class PagedServeEngine(ServeEngine):
         self._reserved: Set[int] = set()
         self._ready: List[Tuple[_PrefillJob, torch.Tensor]] = []
         self._preemptions = 0
-        # Every ported layer pages: the pools are each layer's "k" and
-        # "v", updated in place, with their at-rest rules.
-        self._pools = [lc[n] for lc in self.cache for n in ("k", "v")]
-        self._rules = ("k", "v") * len(self.cache)
+        # Every ported layer pages: the pools are each layer's leaves,
+        # (layer, name), updated in place, with their at-rest rules.
+        self._pool_keys = [(i, n) for i, lc in enumerate(self.cache)
+                           for n in lc]
+        self._pools = [self.cache[i][n] for i, n in self._pool_keys]
+        self._rules = tuple(n if n in ("k", "v") else "raw"
+                            for _, n in self._pool_keys)
         self._rest_fmt = qcfg.a_fwd if qcfg.attn else None
         self.ledger.release("cache")
         self.ledger.account("page_pool", self._pools)
@@ -406,9 +411,27 @@ class PagedServeEngine(ServeEngine):
                                           next_start=len(shared) * ps))
         return finished
 
+    def _pagify(self, job: _PrefillJob) -> None:
+        """Whole-prompt prefill of a job and its one-row cache into the
+        row's P pages, with the prompt's ``T // ps`` full pages sealed."""
+        req, T = job.req, int(job.req.prompt.size)
+        logits, one_cache, _ = self._prefill_one(req)
+        write_chunk_pages(self._pools,
+                          [one_cache[i][n] for i, n in self._pool_keys],
+                          self._row_ids(job.pages, 0, self.P),
+                          T // self.page_size, self._rules, self._rest_fmt,
+                          self.qcfg.block, self.qcfg.scale_mode)
+        job.n_chunks = 1
+        self._ready.append((job, self._first_token(logits, req.sampling)))
+        self._jobs.popleft()
+
     def _advance_job(self) -> None:
-        """Run one prefill chunk of the oldest in-flight job."""
+        """Run one prefill chunk of the oldest in-flight job (the whole
+        prompt for configs outside ``chunk_supported``)."""
         job = self._jobs[0]
+        if not self.chunk:
+            self._pagify(job)
+            return
         req, T, ps = job.req, int(job.req.prompt.size), self.page_size
         start = job.next_start
         C = self.chunk_size
@@ -417,16 +440,17 @@ class PagedServeEngine(ServeEngine):
         toks[:real] = req.prompt[start:start + real]
         dev = self.device
         kv_mask = torch.as_tensor(np.arange(C) < real, device=dev)[None]
-        prior = gather_prior(self._pools,
-                             self._row_ids(job.pages, 0, start // ps))
-        prior = [{"k": k, "v": v} for k, v in zip(prior[::2], prior[1::2])]
+        prior = [dict() for _ in self.cache]
+        for (i, n), t in zip(self._pool_keys, gather_prior(
+                self._pools, self._row_ids(job.pages, 0, start // ps))):
+            prior[i][n] = t
         logits, chunk_kv = lm_prefill_chunk(
             self.params, torch.as_tensor(toks, device=dev)[None], prior,
             start, self.cfg, self.qcfg,
             torch.tensor([real - 1], device=dev), kv_mask)
         n_sealed = max(0, min(T // ps - start // ps, C // ps))
         write_chunk_pages(self._pools,
-                          [c[n] for c in chunk_kv for n in ("k", "v")],
+                          [chunk_kv[i][n] for i, n in self._pool_keys],
                           self._row_ids(job.pages, start // ps, C // ps),
                           n_sealed, self._rules, self._rest_fmt,
                           self.qcfg.block, self.qcfg.scale_mode)

@@ -220,7 +220,7 @@ def test_mx_contract_rejects_unknown_kind_and_backward_raises():
     cfg = core.preset("mxfp8_e4m3")
     with pytest.raises(ValueError, match="unknown mx_contract kind"):
         core.mx_contract(torch.zeros(2, 32), torch.zeros(32, 4), cfg,
-                         kind="attn_qk")
+                         kind="attn_qkv")
     # "bmm" is a kind now; 2-D operands are not its shapes
     with pytest.raises(ValueError, match="kind='bmm' takes"):
         core.mx_contract(torch.zeros(2, 32), torch.zeros(32, 4), cfg,

@@ -247,7 +247,7 @@ def test_lm_prefill_and_decode_match_reference(smoke, prec):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(n_experts=4, top_k=2, moe_dff=64, mla=True), dict(mla=True),
+    dict(tie_embeddings=True), dict(frontend="patch", n_frontend_tokens=4),
     dict(block_pattern=("rec", "attn"), d_rnn=64), dict(window=16),
     dict(enc_layers=2), dict(block_pattern=("mlstm",))])
 def test_other_architectures_raise_not_implemented(overrides):

@@ -311,9 +311,10 @@ def test_config_matches_reference_and_is_served_whole():
     assert not chunk_supported(cfg)
     assert chunk_supported(get_config("olmo-paper", "smoke"))
     params = lm_init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
-        PagedServeEngine(params, cfg, core.preset("bf16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 4"):
+    # the paged engine takes the whole-prompt path, chunked prefill raises
+    eng = PagedServeEngine(params, cfg, core.preset("bf16"), device="cpu")
+    assert not eng.chunk
+    with pytest.raises(NotImplementedError, match="prefill whole"):
         lm_prefill_chunk(params, torch.zeros((1, 32), dtype=torch.long), [],
                          0, cfg, core.preset("bf16"))
     with pytest.raises(NotImplementedError, match="later slice"):
