@@ -146,6 +146,24 @@ Phases, each of which raises on failure:
                 Trainer steps at 4 x 512 under mxfp8_e4m3 and bf16 (one
                 flash forward and one flash dgrad a layer a step; finite,
                 falling losses) with two 3-step replays of equal bits.
+ 15. rgemma   — deepseek's state freed: kernels 5 and 6 at recurrentgemma's
+                attention (BH 2, G 16, T 4096, window 2048, d 256 / dv
+                256; and 300 queries at q_offset 2048) in both modes with
+                the flash checks and the window one position wider
+                planted, kernel 7 at its ring decode (B 4, G 16, S 2048,
+                rows before and after the wrap) with the ring's age rule
+                planted one slot ahead, each timed against SDPA with the
+                mask; then recurrentgemma-9b at full width, one pattern
+                period (rec, rec, attn; weights from a CUDA generator):
+                the slab ServeEngine (4 rows, max_len 4096) on prompts of
+                64, 2000, 2100 and 3000 tokens x 32 greedy tokens, every
+                step's logits against a teacher-forced forward under the
+                reference's bounds, in mxfp8_e4m3 and bf16; the paged
+                engine's tokens equal with 0 paged leaves; card against
+                CPU logits at 64 positions; 10 Trainer steps at 2 x 4096
+                per preset (one flash forward and one flash dgrad a
+                step, the RG-LRU scans' share printed) with two 3-step
+                replays of equal bits.
 The kernel phase also holds the dgrad, wgrad and flash dgrad kernels at
 the training shapes (4096 tokens; BH 64, T 512) against their plain
 versions, with planted faults that their checks reject (dgrad with W
@@ -190,6 +208,7 @@ import pstats
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -210,17 +229,40 @@ def ulp_bf16(x):
     return torch.exp2(e - 7)
 
 
+# A profiler window loses records at its start: late in this script's
+# long run a window of flush + fn pairs has missed its first flush, and a
+# window of one pack step its first 20-28 kernels.  So every counting or
+# timing window opens with PROFILE_WARM spin kernels (torch.cuda._sleep's
+# ``spin_kernel``, never counted) and PROFILE_MARGIN_S idle seconds before
+# what it measures (``_open_window``).
+PROFILE_WARM = 32
+PROFILE_MARGIN_S = 0.02
+SPIN = "spin_kernel"
+
+
+def _open_window():
+    import torch
+    for _ in range(PROFILE_WARM):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_MARGIN_S)
+
+
+def _device_rows(prof):
+    """The kernels a profiler window saw (key_averages rows), but for the
+    spin kernels that opened it."""
+    import torch
+    return [row for row in prof.key_averages()
+            if row.device_type == torch.autograd.DeviceType.CUDA
+            and SPIN not in row.key]
+
+
 def _kernel_us(prof, skip=frozenset()) -> float:
     """Summed device time (µs) of the kernels a profiler window saw, but
-    for those named in ``skip``."""
-    import torch
-    total = 0.0
-    for row in prof.key_averages():
-        if (row.device_type == torch.autograd.DeviceType.CUDA
-                and row.key not in skip):
-            total += getattr(row, "device_time_total",
-                             getattr(row, "cuda_time_total", 0.0))
-    return total
+    for those named in ``skip`` and the spin kernels."""
+    return sum(getattr(row, "device_time_total",
+                       getattr(row, "cuda_time_total", 0.0))
+               for row in _device_rows(prof) if row.key not in skip)
 
 
 def time_ms(fn, iters: int, flush) -> float:
@@ -237,9 +279,7 @@ def _window_counts_ok(prof, iters: int) -> bool:
     """Whether a profiler window of ``iters`` flush + fn pairs saw every
     launch: each of the flush's kernels exactly ``iters`` times, and each
     kernel of fn a whole multiple of ``iters`` times (at least once)."""
-    import torch
-    counts = {row.key: row.count for row in prof.key_averages()
-              if row.device_type == torch.autograd.DeviceType.CUDA}
+    counts = {row.key: row.count for row in _device_rows(prof)}
     own = [n for key, n in counts.items() if key not in _FLUSH_KEYS]
     return (bool(_FLUSH_KEYS) and bool(own)
             and all(counts.get(key, 0) == iters for key in _FLUSH_KEYS)
@@ -270,12 +310,12 @@ def time_parts_ms(fn, iters: int, flush):
     for _ in range(3):   # a window that lost records is taken again
         if not _FLUSH_KEYS:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _open_window()
                 flush()
                 torch.cuda.synchronize()
-            _FLUSH_KEYS = frozenset(
-                row.key for row in prof.key_averages()
-                if row.device_type == torch.autograd.DeviceType.CUDA)
+            _FLUSH_KEYS = frozenset(row.key for row in _device_rows(prof))
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _open_window()
             for _ in range(iters):
                 flush()
                 fn()
@@ -283,8 +323,7 @@ def time_parts_ms(fn, iters: int, flush):
         if _window_counts_ok(prof, iters):
             break
     else:
-        seen = {row.key[:60]: row.count for row in prof.key_averages()
-                if row.device_type == torch.autograd.DeviceType.CUDA}
+        seen = {row.key[:60]: row.count for row in _device_rows(prof)}
         print(f"[timing] the profiler lost records in three windows (flush "
               f"kernels {sorted(_FLUSH_KEYS)}; the last window of {iters} "
               f"calls saw {seen}): CUDA events", flush=True)
@@ -293,9 +332,7 @@ def time_parts_ms(fn, iters: int, flush):
     parts = {row.key: getattr(row, "device_time_total",
                               getattr(row, "cuda_time_total", 0.0))
              / iters / 1e3
-             for row in prof.key_averages()
-             if row.device_type == torch.autograd.DeviceType.CUDA
-             and row.key not in _FLUSH_KEYS}
+             for row in _device_rows(prof) if row.key not in _FLUSH_KEYS}
     return _kernel_us(prof, _FLUSH_KEYS) / iters / 1e3, parts
 
 
@@ -398,40 +435,54 @@ def v_qk_stride(v, d: int):
     return flat.as_strided((BH, Tk, dv), (flat.shape[1], d, 1)).contiguous()
 
 
-def planted_flash(q, k, v, fmt, fault, scale_mode="floor"):
-    """The plain causal flash forward for one kv tile (every serve bucket
-    fits in one: kv_chunk 1024) under ``scale_mode`` with one planted
-    ``fault`` (None: none; FLASH_FAULTS or MLA_FLASH_FAULTS)."""
+def planted_flash(q, k, v, fmt, fault, scale_mode="floor", spec=None):
+    """The plain flash forward under ``spec`` (default causal, Tq = Tk)
+    over its kv tiles (every serve bucket fits in one: kv_chunk 1024),
+    folded as the reference folds them, under ``scale_mode`` with one
+    planted ``fault`` (None: none; FLASH_FAULTS or MLA_FLASH_FAULTS)."""
     import torch
-    from repro_torch.core import quantize_mx
-    from repro_torch.kernels.ref import NEG_INF
+    from repro_torch.core import AttnSpec, quantize_mx
+    from repro_torch.kernels import ref
 
     def Q(x, axis):
         return quantize_mx(x, fmt, axis=axis, scale_mode=scale_mode)
-    T = k.shape[1]
-    s = torch.einsum("bgqd,bkd->bgqk", Q(q.float(), -1), Q(k.float(), -1))
-    s = s * (1.0 / math.sqrt(v.shape[-1] if fault == MLA_FLASH_FAULTS[0]
-                             else q.shape[-1]))
+    spec = spec or AttnSpec()
+    Tq, Tk = q.shape[2], k.shape[1]
+    tile_k = ref.attn_tiles(spec, Tq, Tk)[1]
+    scale = 1.0 / math.sqrt(v.shape[-1] if fault == MLA_FLASH_FAULTS[0]
+                            else q.shape[-1])
     if fault == MLA_FLASH_FAULTS[1]:
         v = v_qk_stride(v, q.shape[-1])
-    valid = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    l = p.sum(-1, keepdim=True)
-    pq = Q(p, -1)
-    if fault == "p unquantized":
-        pq = p
-    elif fault == "p cast under the floor rule":
-        pq = quantize_mx(p, fmt, axis=-1)
-    elif fault == "p against a 32-column sub-tile max":
-        ms = s.unflatten(-1, (T // 32, 32)).amax(-1, keepdim=True)
-        ms = ms.expand(*ms.shape[:-1], 32).flatten(-2)
-        pq = Q(torch.where(valid, torch.exp(s - ms), 0.0), -1) * torch.exp(
-            ms - m)
-    vq = Q(v.float(), -1 if fault == "v quantized along d" else -2)
-    acc = torch.einsum("bgqk,bkd->bgqd", pq, vq)
-    return (acc / l.clamp(min=1e-30)).to(q.dtype)
+    qq, kq = Q(q.float(), -1), Q(k.float(), -1)
+    valid_all = attn_valid(spec, Tq, Tk, q.device)
+    m = torch.full(q.shape[:3], ref.NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape[:3] + (v.shape[-1],), device=q.device)
+    for ts in range(0, Tk, tile_k):
+        te = min(ts + tile_k, Tk)
+        valid = valid_all[:, ts:te]
+        s = torch.where(valid, torch.einsum("bgqd,bkd->bgqk", qq,
+                                            kq[:, ts:te]) * scale,
+                        ref.NEG_INF)
+        mn = torch.maximum(m, s.amax(-1))
+        p = torch.where(valid, torch.exp(s - mn[..., None]), 0.0)
+        pq = Q(p, -1)
+        if fault == "p unquantized":
+            pq = p
+        elif fault == "p cast under the floor rule":
+            pq = quantize_mx(p, fmt, axis=-1)
+        elif fault == "p against a 32-column sub-tile max":
+            ms = s.unflatten(-1, (-1, 32)).amax(-1, keepdim=True)
+            ms = ms.expand(*ms.shape[:-1], 32).flatten(-2)
+            pq = Q(torch.where(valid, torch.exp(s - ms), 0.0),
+                   -1) * torch.exp(ms - mn[..., None])
+        vq = Q(v[:, ts:te].float(), -1 if fault == "v quantized along d"
+               else -2)
+        corr = torch.exp(m - mn)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bgqk,bkd->bgqd", pq, vq)
+        m = mn
+    return (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
 
 
 def planted_decode(q, kc, vc, valid, fmt, fault):
@@ -2594,7 +2645,8 @@ def flash_bwd_case(q, k, v, dout, fmt, spec, mode="floor"):
                   for b, g in zip(gotb, got))
     return {"ok": ok and rounded and replay, "worst": worst,
             "err": max((a - b).abs().max().item() for a, b in zip(got, want)),
-            "replay": replay, "args": args, "want": want, "bounds": bounds}
+            "replay": replay, "args": args, "want": want, "bounds": bounds,
+            "got": got}
 
 
 def flash_bwd_fp64_case(q, k, v, dout, fmt, spec, mode):
@@ -2698,6 +2750,7 @@ def phase_train(params, cfg):
         # steady-state step: median of the steps after the first
         step_s = sorted(times[1:])[len(times[1:]) // 2]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _open_window()
             t1 = time.perf_counter()
             tr.run(2)
             torch.cuda.synchronize()
@@ -2705,9 +2758,7 @@ def phase_train(params, cfg):
         busy = _kernel_us(prof) / 2 / 1e6
         rows_ = [(r.key, getattr(r, "device_time_total",
                                  getattr(r, "cuda_time_total", 0.0))
-                  / 2 / 1e3, r.count // 2)
-                 for r in prof.key_averages()
-                 if r.device_type == torch.autograd.DeviceType.CUDA]
+                  / 2 / 1e3, r.count // 2) for r in _device_rows(prof)]
         top = [(k[:60], ms, n) for k, ms, n in
                sorted(rows_, key=lambda t: -t[1])[:10]]
         families = {}
@@ -3562,19 +3613,84 @@ def phase_sweep(dev: str = "cuda", budget: str = "full"):
     return out
 
 
+COUNT_READINGS = 3       # readings of each launch count (its largest kept)
+
+
 def _profile_kernels(fn):
     """(device kernels of one ``fn()`` call by name, their device ms, the
-    call's wall ms) from a profiler window."""
+    call's wall ms) from a profiler window opened on an idle card
+    (``_open_window``), with PROFILE_MARGIN_S idle seconds after the
+    call too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    return ({r.key: r.count for r in prof.key_averages()
-             if r.device_type == torch.autograd.DeviceType.CUDA},
+        time.sleep(PROFILE_MARGIN_S)
+    return ({r.key: r.count for r in _device_rows(prof)},
             _kernel_us(prof) / 1e3, wall)
+
+
+def sweep_launch_counts() -> dict:
+    """Launches of one step of fig6's mxfp4_e2m1 pack at LANES lanes and
+    at 1, and of its batch draw alone, each from COUNT_READINGS profiler
+    windows (``_profile_kernels``), on consecutive steps: by lane count,
+    [kernels of the step, our launches in it (ops.LAUNCHES), kernels of
+    the draw, the step's kernel ms, its wall ms, every reading of the
+    step's and the draw's kernels].  A profiler window can lose records
+    and never adds one, so each count is its largest reading; every
+    reading is printed.  For [sweep-parity], which runs it in a fresh
+    process (``run_fresh``): late in this script's long run the profiler
+    loses more (a one-lane draw of 27 kernels has read 0-21)."""
+    import dataclasses
+    from repro_torch.kernels import ops
+    from repro_torch.models import proxy_batch
+    from repro_torch.sweep import ProxyPack, get_sweep_spec
+    mx = [r for r in get_sweep_spec("fig6", "full").expand()
+          if r.scheme == "mxfp4_e2m1"]
+    counts = {}
+    for lanes in (LANES, 1):
+        pack = ProxyPack([dataclasses.replace(r, steps=50)
+                          for r in mx[:lanes]], "cuda")
+        for s in range(2):
+            pack.step(s, pack.qcfg0)
+        steps, draws, ours, busy, wall = [], [], [], [], []
+        for s in range(2, 2 + COUNT_READINGS):
+            ops.reset_launches()
+            step_k, b, w = _profile_kernels(lambda: pack.step(s, pack.qcfg0))
+            ours.append({k: v for k, v in ops.LAUNCHES.items() if v})
+            draw_k = _profile_kernels(lambda: proxy_batch(
+                s, pack.teachers, pack.cfg, pack.seeds))[0]
+            steps.append(sum(step_k.values()))
+            draws.append(sum(draw_k.values()))
+            busy.append(b)
+            wall.append(w)
+        if any(o != ours[0] for o in ours):
+            raise AssertionError(f"our launches differ between steps at "
+                                 f"{lanes} lanes: {ours}")
+        i = steps.index(max(steps))
+        counts[lanes] = (steps[i], ours[0], max(draws), busy[i], wall[i],
+                         {"step": steps, "draw": draws})
+    return counts
+
+
+def run_fresh(name: str):
+    """``name()`` of this script run in a fresh Python process on the same
+    card (the kernels already built are loaded), its result through JSON
+    (int keys come back as strings)."""
+    code = ("import json, sys; sys.path[:0] = [%r, %r]; import chip_smoke; "
+            "print(json.dumps(chip_smoke.%s()))" % (str(ROOT / "src"),
+                                                   str(ROOT), name))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode:
+        raise AssertionError(f"{name} in a fresh process failed:\n"
+                             f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def _timed_sweep(runs, dev, mode, keep_params=False):
@@ -3604,8 +3720,7 @@ def phase_sweep_parity(dev: str = "cuda", steps: int = 50,
     import torch
     from repro_torch.core.diagnostics import tree_leaves_with_path as \
         tree_leaves
-    from repro_torch.kernels import ops
-    from repro_torch.sweep import ProxyPack, RunSpec, get_sweep_spec
+    from repro_torch.sweep import RunSpec, get_sweep_spec
 
     cuda = torch.device(dev).type == "cuda"
     runs = [dataclasses.replace(r, steps=steps)
@@ -3639,26 +3754,14 @@ def phase_sweep_parity(dev: str = "cuda", steps: int = 50,
 
     # Launches of one pack step, 8 lanes against 1 (an MX scheme's pack),
     # and of its batch draw alone (each lane's x, teacher forward and
-    # label noise, drawn as a one-lane run draws them).
+    # label noise, drawn as a one-lane run draws them), counted in a fresh
+    # process (sweep_launch_counts).
     launches = None
     if cuda:
-        from repro_torch.models import proxy_batch
-        mx = [r for r in runs if r.scheme == "mxfp4_e2m1"]
-        counts = {}
-        for lanes in (LANES, 1):
-            pack = ProxyPack(mx[:lanes], dev)
-            for s in range(2):
-                pack.step(s, pack.qcfg0)
-            ops.reset_launches()
-            step_k, busy, wall = _profile_kernels(
-                lambda: pack.step(2, pack.qcfg0))
-            ours = dict(ops.LAUNCHES)
-            draw_k = _profile_kernels(lambda: proxy_batch(
-                2, pack.teachers, pack.cfg, pack.seeds))[0]
-            counts[lanes] = (sum(step_k.values()), ours,
-                             sum(draw_k.values()), busy, wall)
-        (k8, o8, d8, busy8, wall8), (k1, o1, d1, busy1, wall1) = (
-            counts[LANES], counts[1])
+        counts = run_fresh("sweep_launch_counts")
+        (k8, o8, d8, busy8, wall8, read8), (k1, o1, d1, busy1, wall1,
+                                            read1) = (counts[str(LANES)],
+                                                      counts["1"])
         launches = {"lanes": LANES, "kernels_per_step": k8,
                     "kernels_per_step_one_lane": k1,
                     "kernel_ms_per_step": busy8,
@@ -3669,8 +3772,8 @@ def phase_sweep_parity(dev: str = "cuda", steps: int = 50,
                     "batch_draw_kernels": d8,
                     "batch_draw_kernels_one_lane": d1,
                     "batch_draw_kernels_per_lane": (d8 - d1) / (LANES - 1),
-                    "ours_per_step": {k: v for k, v in o8.items() if v},
-                    "ours_equal": o8 == o1}
+                    "ours_per_step": o8, "ours_equal": o8 == o1,
+                    "readings": read8, "readings_one_lane": read1}
         print("[sweep-parity] launches " + json.dumps(launches), flush=True)
         # the lanes add their batch draws and nothing else
         if not o8 == o1 or k8 - k1 != d8 - d1:
@@ -3787,6 +3890,7 @@ def profile_decode_step(sp, cfg, qcfg, cache, steps: int = 10,
     run()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _open_window()
         run()
     busy_ms = _kernel_us(prof) / steps / 1e3
     host = cProfile.Profile()
@@ -3801,8 +3905,7 @@ def profile_decode_step(sp, cfg, qcfg, cache, steps: int = 10,
     top = sorted(((r.key[:60], getattr(r, "device_time_total",
                                         getattr(r, "cuda_time_total", 0.0))
                    / steps / 1e3, r.count // steps)
-                  for r in prof.key_averages()
-                  if r.device_type == torch.autograd.DeviceType.CUDA),
+                  for r in _device_rows(prof)),
                  key=lambda t: -t[1])[:8]
     out = {"wall_ms": wall_ms, "kernel_ms": busy_ms,
            "idle_share": max(0.0, 1 - busy_ms / wall_ms),
@@ -4370,6 +4473,18 @@ def _peak(dev) -> int:
     return 0
 
 
+def _laps(tag):
+    """A function that prints the wall seconds since its last call (or
+    since this one) under ``label``: where a phase's time goes."""
+    last = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f"[{tag}] {label} {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+    return lap
+
+
 def _free(dev):
     """Collect what the caller dropped (cycles too) and return the
     allocator's free blocks to the card."""
@@ -4625,9 +4740,11 @@ def phase_moe(rows):
     from repro_torch.core.diagnostics import tree_leaves_with_path
     from repro_torch.models import lm_init, tree_map
 
+    lap = _laps("moe")
     cfg = moe_config(MOE_LAYERS)
     # training's capacity: 8 x 512 tokens, top-6, capacity factor 1.25
     expert_lane_kernels(rows, "moe", cfg, 480, SEED + 23)
+    lap("lane kernels")
     t0 = time.perf_counter()
     params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                      "cuda")
@@ -4635,12 +4752,15 @@ def phase_moe(rows):
     print(f"[moe] {cfg.name} {cfg.n_layers} layers: {n} parameters, "
           f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
     serve, paged = moe_serve(params, cfg)
+    lap("serve")
     moe_parity(params, cfg)
+    lap("parity")
     # The trainers draw fresh copies from the host: the card holds one
     # model's weights, gradients and moments at a time.
     params = tree_map(lambda t: t.cpu(), params)
     torch.cuda.empty_cache()
     train = moe_train(params, cfg)
+    lap("train")
     return {"serve": serve, "paged": paged, "train": train["counts"]}
 
 
@@ -4686,14 +4806,14 @@ def mla_config(n_layers: int):
                                n_layers=n_layers)
 
 
-def _limit_check(tag, rec, rel_limit, atol_limit):
+def _limit_check(tag, rec, rel_limit, atol_limit, phase="mla"):
     """rec's rel_fro and max_abs_err within the limits."""
     rec["limits"] = {"rel_fro": rel_limit, "max_abs_err": atol_limit}
     ok = rec["rel_fro"] <= rel_limit and rec["max_abs_err"] <= atol_limit
-    print(f"[mla] {'ok  ' if ok else 'FAIL'} {tag}: {json.dumps(rec)}",
+    print(f"[{phase}] {'ok  ' if ok else 'FAIL'} {tag}: {json.dumps(rec)}",
           flush=True)
     if not ok:
-        raise AssertionError(f"mla {tag}: logits disagree")
+        raise AssertionError(f"{phase} {tag}: logits disagree")
 
 
 def _logit_diff(a, b):
@@ -4970,10 +5090,11 @@ def mla_absorbed(params, cfg, dev: str = "cuda"):
     return out
 
 
-def mla_parity(params, cfg, devs=("cuda", "cpu")):
-    """Teacher-forced logits of one 64-token prompt through ``cfg``'s
-    layers (the lead dense MLA layer), on the card (kernels) and on the
-    CPU (plain versions), same bf16 serving weights, under mxfp8_e4m3."""
+def mla_logits(params, cfg, dev: str):
+    """Teacher-forced logits (64, vocab) fp32 on the host of one 64-token
+    prompt through ``cfg``'s layers (the lead dense MLA layer) on ``dev``,
+    with bf16 serving weights made there from ``params``, under
+    mxfp8_e4m3, and the seconds they took."""
     import numpy as np
     import torch
     from repro_torch.core import preset
@@ -4984,29 +5105,33 @@ def mla_parity(params, cfg, devs=("cuda", "cpu")):
     qcfg = preset("mxfp8_e4m3")
     prompt = torch.as_tensor(np.random.default_rng(SEED + 7).integers(
         1, cfg.vocab, (1, 64)))
-    logits, secs = {}, {}
     with torch.inference_mode():
-        for dev in devs:
-            p = serving_params(tree_map(lambda t: t.to(dev), params), dev)
-            t0 = time.perf_counter()
-            h, _ = lm_apply(p, {"tokens": prompt.to(dev)}, cfg, qcfg)
-            logits[dev] = qdense(p["lm_head"], h, qcfg)[0].float().cpu()
-            secs[dev] = time.perf_counter() - t0
-            del p, h
-    rec = _logit_diff(logits[devs[0]], logits[devs[1]])
-    rec.update(layers=cfg.n_layers, seconds=secs)
+        p = serving_params(tree_map(lambda t: t.to(dev), params), dev)
+        t0 = time.perf_counter()
+        h, _ = lm_apply(p, {"tokens": prompt.to(dev)}, cfg, qcfg)
+        logits = qdense(p["lm_head"], h, qcfg)[0].float().cpu()
+        secs = time.perf_counter() - t0
+        del p, h
+    _free(dev)
+    return logits, secs
+
+
+def mla_parity(card, cpu, cfg):
+    """mla_logits' results from the card (kernels) and the CPU (plain
+    versions): within MLA_LOGIT_REL / MLA_LOGIT_ATOL."""
+    rec = _logit_diff(card[0], cpu[0])
+    rec.update(layers=cfg.n_layers, seconds={"cuda": card[1],
+                                             "cpu": cpu[1]})
     _limit_check("parity mxfp8_e4m3", rec, MLA_LOGIT_REL, MLA_LOGIT_ATOL)
-    _free(devs[0])
     return rec
 
 
-def mla_grad_parity(params, cfg, B: int = 2, T: int = 128,
-                    devs=("cuda", "cpu")):
-    """One step's loss and gradients of ``cfg`` (the lead dense MLA layer),
-    card (kernels: the flash dgrad at qk 192 / v 128, the dgrad and wgrad
-    GEMMs) against CPU (plain versions), same fp32 weights and batch,
-    under mxfp8_e4m3: every leaf's gradient non-zero on the card and
-    within MLA_GRAD_REL (relative Frobenius) of the CPU's."""
+def mla_grads(params, cfg, dev: str, B: int = 2, T: int = 128):
+    """One step's loss and gradients (fp32 on the host, by leaf path) of
+    ``cfg`` (the lead dense MLA layer) on ``dev`` (on the card: the flash
+    dgrad at qk 192 / v 128, the dgrad and wgrad GEMMs), from fresh fp32
+    copies of ``params`` and one B x T batch, under mxfp8_e4m3; and the
+    seconds they took."""
     import torch
     from repro_torch.core import preset
     from repro_torch.core.diagnostics import tree_leaves_with_path
@@ -5014,23 +5139,28 @@ def mla_grad_parity(params, cfg, B: int = 2, T: int = 128,
     from repro_torch.models import lm_loss
 
     batch = lm_batch(SEED + 8, cfg.vocab, B, T, SEED, device="cpu")
-    qcfg = preset("mxfp8_e4m3")
-    res, secs = {}, {}
-    for dev in devs:
-        p = _fresh(params, dev)
-        leaves = list(tree_leaves_with_path(p))
-        for _, t in leaves:
-            t.requires_grad_(True)
-        t0 = time.perf_counter()
-        loss, _ = lm_loss(p, {k: v.to(dev) for k, v in batch.items()}, cfg,
-                          qcfg)
-        grads = torch.autograd.grad(loss, [t for _, t in leaves])
-        res[dev] = (loss.item(), {path: g.detach().cpu().float()
-                                  for (path, _), g in zip(leaves, grads)})
-        secs[dev] = time.perf_counter() - t0
-        del p, leaves, grads, loss
-        _free(dev)
-    (lc, gc), (lp, gp) = res[devs[0]], res[devs[1]]
+    p = _fresh(params, dev)
+    leaves = list(tree_leaves_with_path(p))
+    for _, t in leaves:
+        t.requires_grad_(True)
+    t0 = time.perf_counter()
+    loss, _ = lm_loss(p, {k: v.to(dev) for k, v in batch.items()}, cfg,
+                      preset("mxfp8_e4m3"))
+    grads = torch.autograd.grad(loss, [t for _, t in leaves])
+    out = (loss.item(), {path: g.detach().cpu().float()
+                         for (path, _), g in zip(leaves, grads)})
+    secs = time.perf_counter() - t0
+    del p, leaves, grads, loss
+    _free(dev)
+    return out + (secs,)
+
+
+def mla_grad_parity(card, cpu, B: int = 2, T: int = 128):
+    """mla_grads' results from the card and the CPU (plain versions),
+    same fp32 weights and batch: every leaf's gradient non-zero on the
+    card and within MLA_GRAD_REL (relative Frobenius) of the CPU's."""
+    import torch
+    (lc, gc, sc), (lp, gp, sp) = card, cpu
     rel = {"/".join(map(str, path)): (
         torch.linalg.norm(gc[path] - g)
         / torch.clamp(torch.linalg.norm(g), min=1e-30)).item()
@@ -5040,7 +5170,8 @@ def mla_grad_parity(params, cfg, B: int = 2, T: int = 128,
     worst = max(rel, key=rel.get)
     out = {"batch": B, "seq": T, "loss_cuda": lc, "loss_cpu": lp,
            "leaves": len(rel), "rel_max": rel[worst], "worst_leaf": worst,
-           "rel": rel, "seconds": secs, "limit": MLA_GRAD_REL}
+           "rel": rel, "seconds": {"cuda": sc, "cpu": sp},
+           "limit": MLA_GRAD_REL}
     ok = not zero and rel[worst] <= MLA_GRAD_REL
     print(f"[mla] {'ok  ' if ok else 'FAIL'} grad parity mxfp8_e4m3 "
           + json.dumps(out), flush=True)
@@ -5141,30 +5272,727 @@ def phase_mla(rows):
     from repro_torch.core.diagnostics import tree_leaves_with_path
     from repro_torch.models import lm_init, tree_map
 
+    t_phase = time.perf_counter()
     cfg = mla_config(MLA_SERVE_LAYERS)
-    # serving's capacity: 64-token prompts or 4 decode rows, top-6 of 160
-    # at SERVE_CAPACITY 4 give the 32-row floor of moe._capacity
-    expert_lane_kernels(rows, "mla", cfg, 32, SEED + 25)
-    mla_decode_gemms(rows, cfg)
     t0 = time.perf_counter()
     params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
                      "cuda")
     n = sum(t.numel() for _, t in tree_leaves_with_path(params))
-    print(f"[mla] {cfg.name} {cfg.n_layers} layers: {n} parameters, drawn "
-          f"in {time.perf_counter() - t0:.1f} s", flush=True)
-    serve = mla_serve(params, cfg)
-    mla_absorbed(params, cfg)
     # The lead dense layer alone, on the host: the parity's CPU side and
     # the trainers' fresh copies.
     cfg1 = mla_config(MLA_TRAIN_LAYERS)
     one = {k: v for k, v in params.items() if k != "layers"}
     one["layers"] = params["layers"][:MLA_TRAIN_LAYERS]
     one = tree_map(lambda t: t.cpu(), one)
-    del params
-    _free("cuda")
-    mla_parity(one, cfg1)
-    mla_grad_parity(one, cfg1)
-    train = mla_train(one, cfg1)
+    print(f"[mla] {cfg.name} {cfg.n_layers} layers: {n} parameters, drawn "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    # The CPU side of the card-against-CPU logits and gradients (the plain
+    # versions at full width, about 100 s) runs in a thread while the card
+    # works, as in [rgemma]; 2 of the host's cores stay free for the
+    # card's launches.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))
+    with ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(lambda: (mla_logits(one, cfg1, "cpu"),
+                                   mla_grads(one, cfg1, "cpu")))
+        # serving's capacity: 64-token prompts or 4 decode rows, top-6 of
+        # 160 at SERVE_CAPACITY 4 give the 32-row floor of moe._capacity
+        lap = _laps("mla")
+        expert_lane_kernels(rows, "mla", cfg, 32, SEED + 25)
+        mla_decode_gemms(rows, cfg)
+        lap("lane and decode kernels")
+        serve = mla_serve(params, cfg)
+        lap("serve")
+        mla_absorbed(params, cfg)
+        lap("absorbed")
+        del params
+        _free("cuda")
+        card = (mla_logits(one, cfg1, "cuda"), mla_grads(one, cfg1, "cuda"))
+        lap("card logits and gradients")
+        train = mla_train(one, cfg1)
+        lap("train")
+        t0 = time.perf_counter()
+        cpu = cpu.result()
+    torch.set_num_threads(threads)
+    print(f"[mla] waited {time.perf_counter() - t0:.1f} s for the CPU "
+          "logits and gradients", flush=True)
+    mla_parity(card[0], cpu[0], cfg1)
+    mla_grad_parity(card[1], cpu[1])
+    print(f"[mla] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"serve": serve["slab"], "paged": serve["paged"],
+            "train": train["counts"]}
+
+
+RG_ARCH = "recurrentgemma-9b"
+# One pattern period at full width: (rec, rec, attn), 2.754 G parameters
+# (embedding and lm_head 2.097 G, a rec layer 234.9 M, the attn layer
+# 186.7 M): 11.0 GB of fp32 weights, 44.1 GB of weights, gradients and
+# AdamW moments when training.
+RG_LAYERS = 3
+RG_B, RG_T, RG_STEPS = 2, 4096, 10
+# Serving: 4 rows of max_len 4096 (the attn layer's ring holds the window
+# of 2048); prompts below, at and past the window, so the ring wraps in
+# prefill and decode writes over wrapped slots.
+RG_PROMPTS = (64, 2000, 2100, 3000)
+RG_MAX_LEN, RG_NEW = 4096, 32
+# Decode against a teacher-forced whole-sequence forward, the reference's
+# bounds (tests/test_serve.py:373-383): bf16 within atol and rtol 1e-1
+# (the rec block's scan runs in another order when stepping); MX relative
+# Frobenius error below 0.2 and cosine above 0.98 (decode casts p and v
+# along the whole ring, the whole forward along each kv tile).
+RG_BF16_TOL = 1e-1
+RG_MX_REL, RG_MX_COS = 0.2, 0.98
+# Card against CPU logits of the 3 layers at 64 positions, (rel_fro,
+# max_abs_err): 1.5x the first reading (mxfp8_e4m3 0.06748654 / 0.3828125,
+# e4m3_bf16act 0.01112247 / 0.0625; PERF.md §6, an H100 80GB HBM3 at 700
+# W).
+RG_LOGIT = {"mxfp8_e4m3": (1.5 * 0.06748654, 1.5 * 0.3828125),
+            "e4m3_bf16act": (1.5 * 0.01112247, 1.5 * 0.0625)}
+# Kernels 5 and 6 at recurrentgemma's attention shapes: (label, BH, G,
+# Tq, Tk, AttnSpec arguments); BH 2 is the training batch of 2 with one
+# kv head, G its 16 query heads, d = dv = 256.  The ragged case is a
+# chunk of 300 queries at q_offset 2048 against 2348 keys.
+RG_FLASH = (("recurrentgemma-9b train", 2, 16, 4096, 4096,
+             dict(kind="window", window=2048)),
+            ("ragged Tq 300 at q_offset 2048", 2, 16, 300, 2348,
+             dict(kind="window", window=2048, q_offset=2048)))
+RG_WINDOW_FAULT = "window one position wider"
+# Kernel 7 at recurrentgemma's decode: B 4 rows, one kv head of 16
+# queries, a ring of 2048 slots; rows before the wrap (pos 100, 1500) and
+# after it (2500, 5000).
+RG_DECODE_POS = (100, 1500, 2500, 5000)
+RING, RING_WINDOW = 2048, 2048
+# Faults of the ring's age rule (age <= min(pos, window - 1)).  The rule
+# with one slot too many as ``age <= min(pos, window)`` gives the same mask
+# as the rule wherever the ring holds min(max_len, window) <= window
+# slots (every age is below S <= window), so no output can tell it apart:
+# it is printed, not held.  A slot too many that can show is the slot
+# after the row's last write before the wrap.
+RING_SAME = "age <= min(pos, window)"
+RING_FAULTS = ("age <= min(pos + 1, window - 1)",)
+
+
+def rg_config(n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(RG_ARCH, "full"),
+                               n_layers=n_layers)
+
+
+def ring_mask(pos, S: int, window: int, fault=None):
+    """(B, S) validity of a ring of S slots at per-row positions ``pos``
+    under the age rule, or with one planted ``fault`` (RING_SAME or
+    RING_FAULTS)."""
+    import torch
+    from repro_torch.models.attention import decode_valid_mask
+    if fault is None:
+        return decode_valid_mask(pos, S, window)
+    age = ((pos % S)[:, None] - torch.arange(S, device=pos.device)[None]) % S
+    reach = (torch.clamp(pos, max=window) if fault == RING_SAME
+             else torch.clamp(pos + 1, max=window - 1))
+    return age <= reach[:, None]
+
+
+def sdpa_masked(q, k, v, mask):
+    """PyTorch's SDPA on q (B, H, Tq, d), k and v (B, H, Tk, ·) with a
+    boolean ``mask``, held to the first backend that takes it
+    (memory-efficient, cuDNN, FlashAttention, then the math path).
+    Returns (a function of no argument making the call, the backend's
+    name)."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.FLASH_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    return None, "none"
+
+
+def rg_flash_bound(BH, G, Tq, Tk, d, dv, spec, device):
+    """bound() of the flash dgrad: q, k, v, dout, out read and dq, dk, dv
+    written in bf16, lse read in fp32; (6 d + 4 dv) operations a valid
+    score."""
+    n_valid = int(attn_valid(spec, Tq, Tk, device).sum()) * BH * G
+    return bound(2 * (BH * G * Tq * 2 * (d + dv) + BH * Tk * 2 * (d + dv))
+                 + 4 * BH * G * Tq, (6 * d + 4 * dv) * n_valid)
+
+
+def rg_flash_kernels(rows, flush):
+    """Kernels 5 and 6 at RG_FLASH (d 256 / dv 256, G 16, window 2048), in
+    e4m3 and bf16 mode: each against its plain version with [kernels]'
+    checks (the forward with its near-tie slack and lse, the dgrad within
+    its term bound, bf16 outputs the fp32 ones rounded once, equal bits
+    on a second call); the window one position wider planted in each and
+    rejected, FLASH_FAULTS in the e4m3 forward at the training shape; in
+    bf16 mode the forward's fp32 out against fp64 at the ragged shape.
+    The dgrad's dense fp64 checks run one bh at a time (each bh is its
+    own problem in the kernel); the call at the full BH, which the
+    Trainer's shape gives the split dK/dV pass, must then give the per-bh
+    calls' fp32 grads (and the forward their out and lse) bitwise,
+    stacked.  Timed against the bound and SDPA with the window as a
+    boolean mask."""
+    import torch
+    from repro_torch.core import E4M3, AttnSpec
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    card = torch.cuda.get_device_name(0)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * std).bfloat16()
+
+    def record(name, case, err, ok, ms, plain_ms, lib, bnd, **extra):
+        entry = {"case": case, "max_abs_err": err, "ms": ms,
+                 "plain_ms": plain_ms, "library_ms": lib,
+                 "bound_ms": bnd[0], "bound_by": bnd[1], "card": card,
+                 **extra}
+        print(f"[rgemma] {'ok  ' if ok else 'FAIL'} {name} "
+              f"{json.dumps(entry)}", flush=True)
+        if not ok:
+            raise AssertionError(f"rgemma {name} {case} disagrees with its "
+                                 "plain version")
+        rows[name]["cases"].append(entry)
+
+    for label, BH, G, Tq, Tk, kw in RG_FLASH:
+        spec = AttnSpec(**kw)
+        wide = dataclasses.replace(spec, window=spec.window + 1)
+        d = dv = 256
+        q, k, v = rnd(BH, G, Tq, d), rnd(BH, Tk, d), rnd(BH, Tk, dv)
+        dout = rnd(BH, G, Tq, dv, std=1e-2)
+        valid = attn_valid(spec, Tq, Tk, q.device)
+        mask = valid[None, None]
+        qs, ks, vs = (q, k[:, None].expand(BH, G, Tk, d).contiguous(),
+                      v[:, None].expand(BH, G, Tk, dv).contiguous())
+        for fmt in (E4M3, None):
+            mode = "e4m3" if fmt else "bf16"
+            c = flash_fwd_case(q, k, v, fmt, spec)
+            faults = {RG_WINDOW_FAULT: wide}
+            check_controls(
+                f"rgemma flash {label} {mode}", c["check"],
+                lambda fault: ref.mx_flash_attention_ref(
+                    q, k, v, fmt, faults.get(fault, spec))[0],
+                (RG_WINDOW_FAULT,))
+            if fmt is not None and Tq == Tk:
+                check_controls(f"rgemma flash {label}", c["check"],
+                               lambda fault: planted_flash(
+                                   q, k, v, fmt, fault, spec=spec),
+                               FLASH_FAULTS)
+            extra = {}
+            if fmt is None and Tq < 1024:
+                ok64, kw_, pw, fw, rep = flash_fwd_fp64_case(q, k, v, spec)
+                print(f"[rgemma] {'ok  ' if ok64 else 'FAIL'} flash forward "
+                      f"{label} bf16 fp32 out against fp64: kernel worst "
+                      f"err/tol {kw_:.3f}, plain version {pw:.3f}, "
+                      f"{FLASH_FWD_FAULT!r} {fw:.2f}, replay equal {rep}",
+                      flush=True)
+                if not ok64:
+                    raise AssertionError(f"rgemma flash forward {label} bf16 "
+                                         "against fp64 disagrees")
+                extra.update(fp64_worst=kw_, fp64_plain_worst=pw)
+            lib, backend = None, None
+            if fmt is None:
+                call, backend = sdpa_masked(qs, ks, vs, mask)
+                lib = call and time_ms(call, 5, flush)
+            record("mx_flash_attention",
+                   f"rgemma {label} BH{BH} G{G} Tq{Tq} Tk{Tk} d{d} dv{dv} "
+                   f"window {spec.window} {mode} (worst err/tol "
+                   f"{c['worst']:.3f}, lse err {c['lse_err']:.2e}, replay "
+                   f"equal {c['replay']})", c["err"], c["ok"],
+                   time_ms(lambda: ops.mx_flash_attention(q, k, v, fmt,
+                                                          spec), 5, flush),
+                   time_ms(lambda: ref.mx_flash_attention_ref(q, k, v, fmt,
+                                                              spec), 2,
+                           flush),
+                   lib, flash_bound(BH, G, Tq, Tk, d, dv, spec, q.device),
+                   near_tie_rows=c["ties"], sdpa_backend=backend, **extra)
+            del c
+            torch.cuda.empty_cache()
+            # the dgrad, checked one bh at a time
+            worst, errs, replays, per_bh = 0.0, [], True, []
+            for b in range(BH):
+                sl = (q[b:b + 1], k[b:b + 1], v[b:b + 1], dout[b:b + 1])
+                c = flash_bwd_case(*sl, fmt, spec)
+                args, want, bounds = c["args"], c["want"], c["bounds"]
+                planted = flash_bwd_dense(*args[:7], spec=wide)[0]
+                accepted, w_ = flash_bwd_check(planted, want, bounds)
+                print(f"[controls] rgemma flash dgrad {label} {mode} bh {b}: "
+                      f"{RG_WINDOW_FAULT!r} worst err/tol {w_:.2f} "
+                      f"({'ACCEPTED' if accepted else 'rejected'})",
+                      flush=True)
+                if accepted:
+                    raise AssertionError(f"rgemma flash dgrad {label}: the "
+                                         "check accepts the planted window")
+                if not c["ok"]:
+                    raise AssertionError(f"rgemma flash dgrad {label} {mode} "
+                                         f"bh {b}: worst {c['worst']}")
+                worst = max(worst, c["worst"])
+                errs.append(c["err"])
+                replays = replays and c["replay"]
+                per_bh.append((*args[4:6], *c["got"]))
+                del c, args, want, bounds, planted
+                torch.cuda.empty_cache()
+            out, lse = ops.mx_flash_attention(q, k, v, fmt, spec)
+            args = (q, k, v, dout, out, lse, fmt, spec)
+            full = (out, lse, *ops.mx_flash_attention_bwd(
+                *args, out_dtype=torch.float32))
+            stacked = [torch.equal(torch.cat(parts), x)
+                       for parts, x in zip(zip(*per_bh), full)]
+            print(f"[rgemma] {'ok  ' if all(stacked) else 'FAIL'} flash "
+                  f"{label} {mode} at BH {BH} against the per-bh calls "
+                  "stacked, bitwise (out, lse, dq, dk, dv): "
+                  f"{stacked}", flush=True)
+            if not all(stacked):
+                raise AssertionError(f"rgemma flash {label} {mode}: the BH "
+                                     f"{BH} call differs from its per-bh "
+                                     f"calls: {stacked}")
+            del per_bh, full
+            lib = None
+            if fmt is None:
+                qg, kg, vg = (t.detach().requires_grad_(True)
+                              for t in (qs, ks, vs))
+                call, backend = sdpa_masked(qg, kg, vg, mask)
+                if call is not None:
+                    o = call()
+                    lib = time_ms(lambda: torch.autograd.grad(
+                        o, (qg, kg, vg), dout, retain_graph=True), 5, flush)
+                    del o
+                del qg, kg, vg
+            record("mx_flash_attention_bwd",
+                   f"rgemma {label} BH{BH} G{G} Tq{Tq} Tk{Tk} d{d} dv{dv} "
+                   f"window {spec.window} {mode} (worst err/tol "
+                   f"{worst:.3f}, replay equal {replays})", max(errs), True,
+                   time_ms(lambda: ops.mx_flash_attention_bwd(*args), 5,
+                           flush),
+                   time_ms(lambda: ref.mx_flash_attention_bwd_ref(*args), 2,
+                           flush),
+                   lib, rg_flash_bound(BH, G, Tq, Tk, d, dv, spec, q.device),
+                   sdpa_backend=backend)
+            del out, lse, args
+            torch.cuda.empty_cache()
+        del q, k, v, dout, qs, ks, vs, mask, valid
+        torch.cuda.empty_cache()
+
+
+def rg_decode_kernel(rows, flush):
+    """Kernel 7 at recurrentgemma's decode: B 4, one kv head of G 16, a
+    ring of 2048 slots, d = dv = 256, rows at RG_DECODE_POS: against its
+    plain version (attn_check), equal bits on a second call, DECODE_FAULTS
+    and RING_FAULTS planted and rejected (RING_SAME shown to give the
+    rule's own mask), timed against the bound and SDPA with the ring's
+    mask."""
+    import torch
+    from repro_torch.core import E4M3
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    B, H, G, S, d = len(RG_DECODE_POS), 1, 16, RING, 256
+    q = torch.randn((B * H, G, d), generator=g, device="cuda").bfloat16()
+    kc, vc = (torch.randn((B, S, H, d), generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
+    pos = torch.tensor(RG_DECODE_POS, device="cuda")
+    valid = ring_mask(pos, S, RING_WINDOW)
+    same = torch.equal(ring_mask(pos, S, RING_WINDOW, RING_SAME), valid)
+    print(f"[controls] rgemma decode ring: {RING_SAME!r} gives the rule's "
+          f"own mask at S {S}, window {RING_WINDOW}: {same} (every age is "
+          "below S <= window, so no output can tell them apart)",
+          flush=True)
+    card = torch.cuda.get_device_name(0)
+    for fmt in (E4M3, None):
+        mode = "e4m3" if fmt else "bf16"
+        ok, worst, err, replay, orf = decode_case(q, kc, vc, valid, fmt)
+        floor = attn_floor(vc, S)
+        check_controls(f"rgemma decode ring {mode}",
+                       lambda got: attn_check(got, orf, floor),
+                       lambda fault: planted_decode(
+                           q, kc, vc, ring_mask(pos, S, RING_WINDOW, fault),
+                           fmt, None), RING_FAULTS)
+        if fmt is not None:
+            check_controls("rgemma decode", lambda got: attn_check(got, orf,
+                                                                   floor),
+                           lambda fault: planted_decode(q, kc, vc, valid,
+                                                        fmt, fault),
+                           DECODE_FAULTS)
+        lib, backend = None, None
+        if fmt is None:
+            qs = q.view(B, H * G, 1, d)
+            ks, vs = (t.transpose(1, 2).expand(B, G, S, d).contiguous()
+                      for t in (kc, vc))
+            call, backend = sdpa_masked(qs, ks, vs, valid[:, None, None, :])
+            lib = call and time_ms(call, 50, flush)
+        entry = {"case": f"rgemma decode B{B} H{H} G{G} ring S{S} d{d} "
+                         f"dv{d} pos {list(RG_DECODE_POS)} {mode} (plan "
+                         f"{ops.decode_plan(S)}; worst err/tol "
+                         f"{worst:.3f}, replay equal {replay})",
+                 "max_abs_err": err,
+                 "ms": time_ms(lambda: ops.mx_attention_decode(
+                     q, kc, vc, valid, fmt), 50, flush),
+                 "plain_ms": time_ms(lambda: ref.mx_attention_decode_ref(
+                     q, kc, vc, valid, fmt), 5, flush),
+                 "library_ms": lib, "sdpa_backend": backend, "card": card}
+        entry["bound_ms"], entry["bound_by"] = decode_bound(valid, H, G, d,
+                                                            d)
+        print(f"[rgemma] {'ok  ' if ok else 'FAIL'} mx_attention_decode "
+              f"{json.dumps(entry)}", flush=True)
+        if not ok:
+            raise AssertionError(f"rgemma decode {mode}: worst err/tol "
+                                 f"{worst}, replay {replay}")
+        rows["mx_attention_decode"]["cases"].append(entry)
+    del q, kc, vc
+    torch.cuda.empty_cache()
+
+
+class _Recorder:
+    """Mixin of a serving engine that keeps each request's logits: the
+    prefill's (its first token) and every decode step's, by rid."""
+
+    def _prefill_one(self, req):
+        logits, cache, padded = super()._prefill_one(req)
+        self.logits.setdefault(req.rid, []).append(logits[0].float().cpu())
+        return logits, cache, padded
+
+    def _decode_logits(self, tok, pos):
+        logits = super()._decode_logits(tok, pos)
+        for i, req in enumerate(self.sched.slots):
+            if req is not None:
+                self.logits.setdefault(req.rid, []).append(
+                    logits[i].float().cpu())
+        return logits
+
+
+def _decode_agrees(name, got, want):
+    """Per step (row) of one request: the reference's bound for the preset.
+    Returns (ok, worst readings)."""
+    import torch
+    diff = (got - want).abs()
+    if name == "bf16":
+        over = (diff / (RG_BF16_TOL + RG_BF16_TOL * want.abs())).amax(-1)
+        return bool((over <= 1).all()), {"worst_over_tol": over.max().item()}
+    rel = torch.linalg.norm(got - want, dim=-1) / torch.linalg.norm(
+        want, dim=-1)
+    cos = (got * want).sum(-1) / (torch.linalg.norm(got, dim=-1)
+                                  * torch.linalg.norm(want, dim=-1))
+    return (bool((rel < RG_MX_REL).all() and (cos > RG_MX_COS).all()),
+            {"rel_fro_max": rel.max().item(), "cos_min": cos.min().item()})
+
+
+def rg_serve(params, cfg, dev: str = "cuda"):
+    """The slab ServeEngine (4 rows, max_len 4096, ring 2048) on
+    RG_PROMPTS, RG_NEW greedy tokens each, under mxfp8_e4m3 and bf16:
+    every request finishes; each step's logits (the prefill's and every
+    decode step's) against a teacher-forced whole-sequence forward of the
+    prompt and the tokens before it, under the reference's bounds; then
+    PagedServeEngine on the same prompts: the slab engine's tokens, 0
+    paged leaves.  Returns the launch counts of the mxfp8_e4m3 runs."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm_apply
+    from repro_torch.models.layers import qdense
+    from repro_torch.serve import (PagedServeEngine, SamplingParams,
+                                   ServeEngine, serving_params)
+
+    class Slab(_Recorder, ServeEngine):
+        pass
+
+    class Paged(_Recorder, PagedServeEngine):
+        pass
+
+    rng = np.random.default_rng(SEED + 32)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in RG_PROMPTS]
+    counts = {}
+    for name in ("mxfp8_e4m3", "bf16"):
+        qcfg = preset(name)
+        tokens = {}
+        for kind in ("slab", "paged"):
+            if kind == "slab":
+                eng = Slab(params, cfg, qcfg, max_batch=4,
+                           max_len=RG_MAX_LEN, device=dev)
+            else:
+                eng = Paged(params, cfg, qcfg, max_batch=4,
+                            max_len=RG_MAX_LEN, n_pages=512, page_size=32,
+                            device=dev)
+            eng.logits = {}
+            for pr in prompts:
+                eng.submit(pr, SamplingParams(max_new_tokens=RG_NEW))
+            _peak_reset(dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            done = eng.drain()
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            st = eng.stats()
+            if len(done) != len(prompts) or any(len(r.tokens) != RG_NEW
+                                                for r in done):
+                raise AssertionError(f"rgemma {kind} serve {name}: "
+                                     f"{[len(r.tokens) for r in done]}")
+            tokens[kind] = [list(map(int, r.tokens)) for r in done]
+            rec = {"requests": len(done), "prompts": list(RG_PROMPTS),
+                   "wall_s": wall, "prefill_tok_s": st["prefill_tok_s"],
+                   "decode_tok_s": st["decode_tok_s"],
+                   "decode_steps": st["decode_steps"],
+                   "max_memory_allocated": _peak(dev), "launches": launches}
+            if kind == "paged":
+                eng.alloc.check()
+                rec.update(chunked=eng.chunk,
+                           paged_leaves=len(eng._pool_keys),
+                           slab_leaves=len(eng._slab_keys))
+                if eng._pool_keys or eng.chunk:
+                    raise AssertionError("rgemma: the paged engine pages "
+                                         f"{eng._pool_keys} or chunks")
+            if name == "mxfp8_e4m3":
+                counts[kind] = launches
+            if dev == "cuda":   # bf16 mode's GEMMs are not MX GEMMs
+                path = ("mx_flash_attention", "mx_attention_decode") + (
+                    ("mx_quantize", "mx_matmul") if qcfg.w_fwd else ())
+                idle = sorted(k for k in path if launches[k] == 0)
+                if idle:
+                    raise AssertionError(f"rgemma {kind} serve {name}: "
+                                         f"kernels never launched: {idle}")
+            if kind == "slab":   # every step against the teacher-forced one
+                p = eng.params
+                worst, ok = {}, True
+                with torch.inference_mode():
+                    for r in done:
+                        seq = np.concatenate([r.prompt, np.asarray(
+                            r.tokens[:-1], np.int32)])
+                        h, _ = lm_apply(p, {"tokens": torch.as_tensor(
+                            seq, device=dev)[None].long()}, cfg, qcfg)
+                        T = r.prompt.size
+                        want = qdense(p["lm_head"], h[0, T - 1:], qcfg)
+                        got = torch.stack(eng.logits[r.rid])
+                        good, w = _decode_agrees(name, got,
+                                                 want.float().cpu())
+                        ok = ok and good
+                        for key, val in w.items():
+                            pick = min if key == "cos_min" else max
+                            worst[key] = pick(worst.get(key, val), val)
+                        del h, want
+                rec["against_teacher_forced"] = worst
+            print(f"[rgemma] serve {kind} {name}: {json.dumps(rec)}",
+                  flush=True)
+            del eng
+            _free(dev)
+            if kind == "slab" and not ok:
+                raise AssertionError(f"rgemma serve {name}: decode logits "
+                                     f"outside the bounds ({worst})")
+        same = tokens["paged"] == tokens["slab"]
+        print(f"[rgemma] {'ok  ' if same else 'FAIL'} paged tokens equal "
+              f"slab tokens {name}: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"rgemma {name}: the paged engine's tokens "
+                                 "differ from the slab engine's")
+    return counts
+
+
+def rg_logits(params, cfg, dev: str):
+    """{preset: logits (64, vocab) fp32 on the host} of one 64-token
+    prompt through ``cfg``'s layers on ``dev``, with bf16 serving weights
+    made there from ``params``, under each preset of RG_LOGIT, and the
+    seconds each took."""
+    import numpy as np
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import lm_apply, tree_map
+    from repro_torch.models.layers import qdense
+    from repro_torch.serve import serving_params
+
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 33).integers(
+        1, cfg.vocab, (1, 64)), device=dev)
+    out, secs = {}, {}
+    with torch.inference_mode():
+        p = serving_params(tree_map(lambda t: t.to(dev), params), dev)
+        for name in RG_LOGIT:
+            qcfg = preset(name)
+            t0 = time.perf_counter()
+            h, _ = lm_apply(p, {"tokens": prompt}, cfg, qcfg)
+            out[name] = qdense(p["lm_head"], h, qcfg)[0].float().cpu()
+            secs[name] = time.perf_counter() - t0
+            del h
+        del p
+    _free(dev)
+    return out, secs
+
+
+def rg_parity(card, cpu, cfg):
+    """rg_logits' results from the card (kernels) and the CPU (plain
+    versions), same bf16 serving weights: each preset within RG_LOGIT
+    (1.5x the first reading; None prints the first reading)."""
+    out = {}
+    for name in RG_LOGIT:
+        rec = _logit_diff(card[0][name], cpu[0][name])
+        rec.update(layers=cfg.n_layers, seconds={"cuda": card[1][name],
+                                                 "cpu": cpu[1][name]})
+        if RG_LOGIT[name] is None:
+            print(f"[rgemma] first reading, parity {name}: "
+                  f"{json.dumps(rec)}", flush=True)
+        else:
+            _limit_check(f"parity {name}", rec, *RG_LOGIT[name],
+                         phase="rgemma")
+        out[name] = rec
+    return out
+
+
+def rg_scan_ms(B: int, T: int, d: int, iters: int = 5) -> float:
+    """Device ms of one RG-LRU scan forward and backward at (B, T, d) fp32
+    (``rglru._associative_scan`` and its autograd), CUDA events."""
+    import torch
+    from repro_torch.models import rglru
+    g = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    a = torch.rand((B, T, d), generator=g, device="cuda").requires_grad_()
+    b = torch.randn((B, T, d), generator=g, device="cuda").requires_grad_()
+    gh = torch.randn((B, T, d), generator=g, device="cuda")
+
+    def fn():
+        A, Bc = rglru._associative_scan([a, b])
+        return torch.autograd.grad(Bc, (a, b), gh)
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def rg_train(params, cfg, dev: str = "cuda", B: int = RG_B, T: int = RG_T,
+             steps: int = RG_STEPS):
+    """The Trainer at B x T for ``steps`` AdamW steps under mxfp8_e4m3 and
+    bf16, on one repeated batch: loss finite and falling by [train]'s
+    rule, one flash forward and one flash dgrad a step (the attn layer's),
+    two 3-step runs giving equal bits; step ms, the RG-LRU scans' share of
+    it (rg_scan_ms at the step's shape, one scan a rec layer) and peak
+    memory printed.  Returns the mxfp8_e4m3 run's launch counts."""
+    from repro_torch.core import preset
+    from repro_torch.data import lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import layer_kinds, lm_loss
+    from repro_torch.train import Trainer, TrainerConfig
+
+    batch = lm_batch(0, cfg.vocab, B, T, SEED, device=dev)
+    n_rec = layer_kinds(cfg).count("rec")
+    n_attn = layer_kinds(cfg).count("attn")
+
+    def trainer(name, total):
+        return Trainer(lambda pp, b, q: lm_loss(pp, b, cfg, q),
+                       _fresh(params, dev), preset(name), lambda s: batch,
+                       tcfg=TrainerConfig(total_steps=total, peak_lr=1e-3,
+                                          log_every=1))
+
+    scan = rg_scan_ms(B, T, cfg.d_rnn) if dev == "cuda" else 0.0
+    out = {}
+    for name in ("mxfp8_e4m3", "bf16"):
+        tr = trainer(name, steps)
+        _peak_reset(dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hist = tr.run(steps)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(ops.LAUNCHES)
+        losses = [h["loss"] for h in hist]
+        times = [h["time_s"] for h in hist]
+        step_s = sorted(times[1:])[len(times[1:]) // 2]
+        per_step = {k: v / steps for k, v in counts.items()}
+        rec = {"steps": steps, "batch": B, "seq": T, "losses": losses,
+               "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
+               "tokens_per_s": B * T / step_s, "wall_s": wall,
+               "scan_ms_per_layer": scan,
+               "scan_share": n_rec * scan / (step_s * 1e3),
+               "max_memory_allocated": _peak(dev),
+               "launches_per_step": per_step}
+        print(f"[rgemma] train {name}: {json.dumps(rec)}", flush=True)
+        del tr
+        _free(dev)
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"rgemma {name}: non-finite loss {losses}")
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        if not last < first:
+            raise AssertionError(f"rgemma {name}: loss did not fall (first "
+                                 f"5 {first}, last 5 {last})")
+        want = {k: n_attn for k in ("mx_flash_attention",
+                                    "mx_flash_attention_bwd")}
+        got = {k: per_step.get(k, 0) for k in want}
+        if dev == "cuda" and got != want:
+            raise AssertionError(f"rgemma {name}: flash launches per step "
+                                 f"{got}, expected {want}")
+        if name == "mxfp8_e4m3":
+            out["counts"] = counts
+        runs = []
+        for _ in range(2):
+            rt = trainer(name, 3)
+            runs.append(([h["loss"] for h in rt.run(3)],
+                         _bits({"params": rt.params, "opt": rt.opt_state})))
+            del rt
+            _free(dev)
+        same = runs[0] == runs[1]
+        print(f"[rgemma] train {name} replay: losses {runs[0][0]} / "
+              f"{runs[1][0]}, bits equal {same}", flush=True)
+        if not same:
+            raise AssertionError(f"rgemma {name}: replays differ")
+        out[name] = rec
+    return out
+
+
+def phase_rgemma(rows):
+    """[rgemma]: kernels 5 and 6 at recurrentgemma's attention shapes and
+    kernel 7 at its ring decode, then recurrentgemma-9b at full width,
+    one pattern period (rec, rec, attn), weights drawn on a CUDA
+    generator: slab and paged serving with each decode step against a
+    teacher-forced forward, card against CPU logits, and training.
+    Returns the launch counts of the serve, paged and train runs."""
+    import torch
+    from repro_torch.core.diagnostics import tree_leaves_with_path
+    from repro_torch.models import lm_init, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = rg_config(RG_LAYERS)
+    t0 = time.perf_counter()
+    params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                     "cuda")
+    n = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    host = tree_map(lambda t: t.cpu(), params)
+    print(f"[rgemma] {cfg.name} {cfg.n_layers} layers: {n} parameters, "
+          f"drawn in {time.perf_counter() - t0:.1f} s", flush=True)
+    # The CPU side of the card-against-CPU logits (the plain versions at
+    # full width, about two minutes) runs in a thread while the card
+    # works; it keeps 2 of the host's cores free for the card's launches.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))
+    with ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(rg_logits, host, cfg, "cpu")
+        flush = torch.zeros(64 * 2 ** 20, dtype=torch.uint8,
+                            device="cuda").bitwise_not_
+        rg_flash_kernels(rows, flush)
+        rg_decode_kernel(rows, flush)
+        del flush
+        serve = rg_serve(params, cfg)
+        del params
+        _free("cuda")
+        card = rg_logits(host, cfg, "cuda")
+        train = rg_train(host, cfg)
+        t0 = time.perf_counter()
+        cpu = cpu.result()
+    torch.set_num_threads(threads)
+    print(f"[rgemma] waited {time.perf_counter() - t0:.1f} s for the CPU "
+          "logits", flush=True)
+    rg_parity(card, cpu, cfg)
+    print(f"[rgemma] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"serve": serve["slab"], "paged": serve["paged"],
             "train": train["counts"]}
 
@@ -5183,32 +6011,53 @@ def main() -> int:
     from repro_torch.models import lm_init
 
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(tag):   # wall seconds of each phase, for the 1200 s limit
+        laps.append(time.perf_counter())
+        print(f"[time] {tag} {laps[-1] - laps[-2]:.1f} s", flush=True)
+
     phase_build()
+    lap("build")
     rows = phase_kernels()
+    lap("kernels")
     lowbit_kernels()
     phase_scale_modes()
+    lap("lowbit, scale-modes")
     rows.update(phase_lanes())
+    lap("lanes")
     cfg = get_config("olmo-paper", "full")
     params = lm_init(cfg, torch.Generator().manual_seed(SEED), "cuda")
     per_prefill, per_decode = launches_per_call(params, cfg)
     counts = phase_serve(params, cfg)
     phase_parity(params, cfg)
+    lap("serve, parity")
     train = phase_train(params, cfg)
     phase_grad_parity(params, cfg)
     phase_recovery(params, cfg)
+    lap("train, grad-parity, recovery")
     _, guard_counts, guarded = phase_guard(params, cfg, train)
     _, snapshot_counts = phase_snapshot(guarded, cfg)
     del guarded
+    lap("guard, snapshot")
     phase_proxy()
     sweep = phase_sweep()
+    lap("proxy, sweep")
     phase_sweep_parity()
+    lap("sweep-parity")
     paged_parity = phase_paged_parity(params, cfg)
     paged = phase_paged(params, cfg)
+    lap("paged-parity, paged")
     del params
     torch.cuda.empty_cache()
     moe = phase_moe(rows)
+    lap("moe")
     _free("cuda")   # moonshot's state is gone before deepseek's is drawn
     mla = phase_mla(rows)
+    lap("mla")
+    _free("cuda")   # deepseek's state is gone before recurrentgemma's
+    rg = phase_rgemma(rows)
+    lap("rgemma")
 
     # "launches": each kernel's count over the run of its own path under
     # mxfp8_e4m3, counts set to 0 just before it (serving for the slice-1
@@ -5220,7 +6069,9 @@ def main() -> int:
     # "launches_moe_train" over [moe]'s serving and its 10 mxfp8_e4m3
     # training steps, "launches_moe_paged" over its paged engine's run; "launches_mla_serve", "launches_mla_paged" and
     # "launches_mla_train" over [mla]'s slab and paged serving and its 10
-    # mxfp8_e4m3 training steps.
+    # mxfp8_e4m3 training steps; "launches_rgemma_serve",
+    # "launches_rgemma_paged" and "launches_rgemma_train" over [rgemma]'s
+    # slab and paged serving and its 10 mxfp8_e4m3 training steps.
     serve_path = ("mx_quantize", "mx_matmul", "mx_flash_attention",
                   "mx_attention_decode")
     train_counts = train["mxfp8_e4m3"]["counts"]
@@ -5252,6 +6103,9 @@ def main() -> int:
             "launches_mla_serve": mla["serve"][name],
             "launches_mla_paged": mla["paged"][name],
             "launches_mla_train": mla["train"][name],
+            "launches_rgemma_serve": rg["serve"][name],
+            "launches_rgemma_paged": rg["paged"][name],
+            "launches_rgemma_train": rg["train"][name],
             "launches_per_prefill": per_prefill[name],
             "launches_per_decode_step": per_decode[name],
             "launches_per_paged_decode_step": per_paged[name],

@@ -66,12 +66,24 @@ def _mla(cfg: LMConfig):
             "w_kr": _dense(D, cfg.rope_dim), "wo": _dense(H * cfg.v_head, D)}
 
 
+def _rec(cfg: LMConfig):
+    """``rec_block_init``'s leaves."""
+    D, R = cfg.d_model, cfg.d_rnn
+    return {"w_main": _dense(D, R), "w_gate": _dense(D, R),
+            "conv_w": (4, R), "conv_b": (R,), "lam": (R,),
+            "w_i": _dense(R, R), "w_r": _dense(R, R), "w_out": _dense(R, D)}
+
+
 def _block_shapes(cfg: LMConfig, kind: str = "attn") -> Dict[str, Any]:
     """One block's parameter tree with shapes as leaves: a dense block, or
     on an MoE config's ``"attn"`` layers the routed experts (``moe``) and
     the shared ones (``shared``); on an MLA config ``attn`` holds the MLA
-    projections and norms."""
+    projections and norms; a ``"rec"`` block holds ``rec`` in place of
+    ``attn``."""
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if kind == "rec":
+        return {"ln1": _norm(D, cfg.norm), "rec": _rec(cfg),
+                "ln2": _norm(D, cfg.norm), "mlp": _mlp(cfg, cfg.d_ff)}
 
     if cfg.mla:
         attn = _mla(cfg)
@@ -102,15 +114,18 @@ def _block_shapes(cfg: LMConfig, kind: str = "attn") -> Dict[str, Any]:
 
 def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
     """The port's parameter tree with shapes as leaves, one block of each
-    kind: "layer" is the stack's repeated block, and an MoE config with
-    leading dense layers adds "dense_layer"."""
+    kind: "layer" is the stack's repeated block, an MoE config with
+    leading dense layers adds "dense_layer" and a config with ``"rec"``
+    blocks "rec_layer"."""
     out = {"embed": {"table": (cfg.vocab, cfg.d_model)},
            "layer": _block_shapes(cfg),
            "final_ln": _norm(cfg.d_model, cfg.norm),
            "lm_head": {"w": (cfg.d_model, cfg.vocab)}}
-    if any(k == "dense_attn" for pattern, _ in block_plan(cfg)
-           for k in pattern):
+    kinds = {k for pattern, _ in block_plan(cfg) for k in pattern}
+    if "dense_attn" in kinds:
         out["dense_layer"] = _block_shapes(cfg, "dense_attn")
+    if "rec" in kinds:
+        out["rec_layer"] = _block_shapes(cfg, "rec")
     return out
 
 

@@ -42,6 +42,13 @@
 //     dim and the padded v head dim apart (FwTile<DQ, DV>): q, k and the
 //     score's k-steps by DQ; v, PV and the output accumulator by DV, so
 //     MLA's qk 192 against v 128 keeps the v side at 128's registers.
+//     A v head wider than 128 (recurrentgemma's 256) is cut into chunks of
+//     128 value columns, one CTA each (grid z): acc and pv of all 256
+//     columns would be 256 registers a thread, over the 255 limit.  Each
+//     chunk's CTA forms the same S, p, l and m in the same order (the p
+//     cast runs along kv, not along v), so every output column is the one
+//     a CTA holding all columns would give; the work of S is repeated in
+//     each chunk, and the chunk of v column 0 writes lse.
 //     Pass 1 forms S = Q^ K^T on `mma.sync` m16n8k16
 //     (bf16 in, fp32 accumulators) and each row's max over the tile, in
 //     registers and then across the four lanes of a quad; pass 2 forms S
@@ -69,8 +76,17 @@
 //     cast.  The wrapper plans the split from S alone (ops.decode_plan:
 //     `splits` <= 8 CTAs of `span` slots, span a multiple of 32, so no
 //     32-block of p or v straddles two CTAs, and a row's result does not
-//     depend on the batch it shares).  Grid (B*H, splits), one cluster of
-//     `splits` CTAs per (row, kv head), launched with cudaLaunchKernelEx.
+//     depend on the batch it shares).  Grid (B*H, splits, head groups),
+//     one cluster of `splits` CTAs per (row, kv head, group of query
+//     heads), launched with cudaLaunchKernelEx.  Up to MAXG (8) query
+//     heads a kv head are one group; more (recurrentgemma's 16) are cut
+//     into groups of DEC_GROUP, each reading and casting K and V itself,
+//     so a CTA's registers stay those of G <= 8.  A group's CTA runs
+//     DEC_WIDE_THREADS threads (the template's NT): at 128, four warps an
+//     SM could not hide the latency of eight heads over 256-wide rows.
+//     The thread count moves no sum: a K row's dot stays with its LPR
+//     lanes, a head's max and sum with one warp, a value column with its
+//     four lanes.
 //     Each CTA reads its span of the cache in its (B, S, Hkv, d) layout
 //     through strides (no transposed copy): it starts the copy of its V
 //     rows into shared memory (cp.async; a span too long to stage reads
@@ -108,19 +124,31 @@
 namespace cg = cooperative_groups;
 
 namespace {
-constexpr int MAXD = 128;
 constexpr int FW_THREADS = 128;   // 4 warps of 16 query rows
 constexpr int FW_BM = 64;         // query rows of a CTA
 constexpr int FW_PREP = 256;      // threads of a pre-pass CTA
-constexpr int MAXG = 8;
-constexpr int DEC_THREADS = 128;   // a decode CTA
+constexpr int MAXG = 8;            // decode: query heads of a CTA
+#ifndef DEC_GROUP
+#define DEC_GROUP 8                // decode: heads of a CTA when G > MAXG
+#endif
+static_assert(DEC_GROUP >= 1 && DEC_GROUP <= MAXG, "DEC_GROUP");
+constexpr int DEC_MAXDV = 256;     // decode: v head dim
+constexpr int DEC_THREADS = 128;   // a decode CTA of up to MAXG heads
+#ifndef DEC_WIDE_THREADS
+#define DEC_WIDE_THREADS 512       // a decode CTA of a group (G > MAXG)
+#endif
+static_assert(DEC_WIDE_THREADS != 128 && DEC_WIDE_THREADS % 128 == 0,
+              "DEC_WIDE_THREADS");
 constexpr int DEC_KB = 4;          // K loads a thread keeps in flight
 constexpr int DEC_MAX_SMEM = 227 * 1024;   // a CTA's opt-in limit
 constexpr float NEG_INF = -1e30f;
 enum { KIND_CAUSAL = 0, KIND_FULL = 1, KIND_WINDOW = 2 };
 
-// The flash kernels' head dims: qk up to FLASH_MAXD, v up to MAXD.
-constexpr int FLASH_MAXD = 192;
+// The flash kernels' head dims: qk up to FLASH_MAXD, v up to FLASH_MAXDV
+// (v above FW_DVC in chunks of FW_DVC columns).
+constexpr int FLASH_MAXD = 256;
+constexpr int FLASH_MAXDV = 256;
+constexpr int FW_DVC = 128;
 
 // Shapes of the forward's tiles for a padded qk head dim DQ and a padded v
 // head dim DV (multiples of 32): q and k rows are DQ wide, v rows, PV and
@@ -253,6 +281,8 @@ mx_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int bhg = blockIdx.x, bh = bhg / G;
+  // This CTA's chunk of value columns: [dv0, dv0 + dvc) of v's dv.
+  const int dv0 = blockIdx.z * DV, dvc = min(DV, dv - dv0);
   // The CTAs of the last query rows hold the most live blocks under a
   // causal or window mask: they are issued first.
   const int qblk = kind == KIND_FULL ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
@@ -295,8 +325,9 @@ mx_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma_tile<DQ / 8, LD, FW_THREADS>(st(s, 0), kb + (long long)c.bs * d, d,
                                      BN, n, d, vec);
     if (c.pass)
-      mma_tile<DV / 8, LDV, FW_THREADS>(st(s, 1), vb + (long long)c.bs * dv,
-                                        dv, BN, n, dv, vec);
+      mma_tile<DV / 8, LDV, FW_THREADS>(st(s, 1),
+                                        vb + (long long)c.bs * dv + dv0, dv,
+                                        BN, n, dvc, vec);
   };
 
   // Two rows a lane: h = 0 is row gq of the warp's 16, h = 1 row gq + 8.
@@ -434,12 +465,20 @@ mx_flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int b = 0; b < 2; ++b) {
         const int col = 8 * j + 2 * tq + b;
-        if (col < dv)
-          mx_store<OutT>(out + (row0 + r) * dv + col,
+        if (col < dvc)
+          mx_store<OutT>(out + (row0 + r) * dv + dv0 + col,
                          __fdiv_rn(acc[j][2 * h + b], lc));
       }
-    if (tq == 0) lse[row0 + r] = __fadd_rn(m[h], logf(lc));
+    if (tq == 0 && dv0 == 0) lse[row0 + r] = __fadd_rn(m[h], logf(lc));
   }
+}
+
+// Query heads of a decode CTA: all G of a kv head up to MAXG; above, groups
+// of DEC_GROUP heads, one CTA each (grid z).  A head's scores, max, sum, p
+// and PV depend on no other head, so a group gives the bits of one CTA
+// holding all G; K and V are read and cast once per group.
+static int dec_group(int G) {
+  return G <= MAXG ? G : DEC_GROUP;
 }
 
 // Where the decode kernels find the K/V rows.  Slab: k/v are (B, S, Hkv, ·)
@@ -495,15 +534,20 @@ __device__ __forceinline__ uint4 dec_chunk(const __nv_bfloat16* row, int c,
 // `vsm` the span's V rows are staged in shared memory while the scores
 // run; without (a long view with wide value heads), PV reads them in
 // place.
-template <int LPR, bool PAGED>
-__global__ void __launch_bounds__(DEC_THREADS)
+template <int LPR, bool PAGED, int NT>
+__global__ void __launch_bounds__(NT)
 mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  const uint8_t* __restrict__ valid,
-                 __nv_bfloat16* __restrict__ out, int G, int S, int span,
+                 __nv_bfloat16* __restrict__ out, int Gt, int S, int span,
                  int d, int dv, int H, DecRows rows, long long valid_sb,
                  int vec, int vsm, int has_fmt, MxFmt f, float scale) {
+  // This CTA's query heads: [g0, g0 + G) of the kv head's Gt.  A CTA of
+  // DEC_THREADS holds all Gt <= MAXG; a wide one (Gt > MAXG) a group.
+  constexpr bool wide = NT != DEC_THREADS;
+  const int g0 = wide ? blockIdx.z * DEC_GROUP : 0;
+  const int G = wide ? min(DEC_GROUP, Gt - g0) : Gt;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int splits = (int)cluster.num_blocks();
@@ -537,7 +581,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // V rows of the span into shared memory while the scores run; zeros
   // past the view (the reference's padding of the last 32-block).
   const int vch = vsm ? dvs / 8 : 0;
-  for (int i = tid; i < span * vch; i += DEC_THREADS) {
+  for (int i = tid; i < span * vch; i += NT) {
     const int r = i / vch, c = (i % vch) * 8;
     __nv_bfloat16* dst = vs + r * dvs + c;
     if (vec && r < n) {
@@ -553,24 +597,27 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // Scores of all G query heads: a K row is LPR lanes of 8 elements, cast
   // along d in place (mx_quad_quant: 4 lanes a 32-block); a thread issues
   // the loads of DEC_KB rows' first segments before it uses any.
-  const int steps = span * LPR / DEC_THREADS;   // span is a multiple of 32
+  // span is a multiple of 32, so of DEC_THREADS / LPR; a wide CTA's last
+  // step may run past it
+  const int steps = wide ? (span * LPR + NT - 1) / NT : span * LPR / NT;
   for (int st0 = 0; st0 < steps; st0 += DEC_KB) {
     uint4 raw[DEC_KB];
 #pragma unroll
     for (int u = 0; u < DEC_KB; ++u) {
-      const int t = (st0 + u) * DEC_THREADS + tid, r = t / LPR;
+      const int t = (st0 + u) * NT + tid, r = t / LPR;
       raw[u] = (st0 + u < steps && r < n)
                    ? dec_chunk(krow(s0 + r), (t % LPR) * 8, d, vec)
                    : make_uint4(0u, 0u, 0u, 0u);
     }
     if (st0 == 0) {   // q cast along d, and the span's validity
-      for (int i = tid; i < span; i += DEC_THREADS)
+      for (int i = tid; i < span; i += NT)
         oks[i] = i < n && ok[s0 + i] != 0;
-      for (int gg = warp; gg < G; gg += DEC_THREADS / 32)
+      for (int gg = warp; gg < G; gg += NT / 32)
         for (int c0 = 0; c0 < W; c0 += 32) {
           const int c = c0 + lane;
           float x = c < d
-                        ? __bfloat162float(q[((long long)bh * G + gg) * d + c])
+                        ? __bfloat162float(
+                              q[((long long)bh * Gt + g0 + gg) * d + c])
                         : 0.f;
           if (has_fmt) x = mx_warp_quant(x, f);
           qs[gg * W + c] = x;
@@ -580,7 +627,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < DEC_KB; ++u) {
       if (st0 + u >= steps) break;   // uniform over the CTA
-      const int t = (st0 + u) * DEC_THREADS + tid, r = t / LPR;
+      const int t = (st0 + u) * NT + tid, r = t / LPR;
       float dots[MAXG];
 #pragma unroll
       for (int gg = 0; gg < MAXG; ++gg) dots[gg] = 0.f;
@@ -609,7 +656,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
         for (int o = LPR / 2; o > 0; o >>= 1)
           dots[gg] += __shfl_xor_sync(0xffffffffu, dots[gg], o);
       }
-      if (t % LPR == 0)
+      if (t % LPR == 0 && (!wide || r < span))
 #pragma unroll
         for (int gg = 0; gg < MAXG; ++gg)
           if (gg < G) sc[gg * span + r] = oks[r] ? dots[gg] * scale : NEG_INF;
@@ -619,7 +666,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   // The cluster's max, then its sum, each read from every rank's shared
   // memory in rank order.  A span with no valid slot gives NEG_INF and 0.
-  for (int gg = warp; gg < G; gg += DEC_THREADS / 32) {
+  for (int gg = warp; gg < G; gg += NT / 32) {
     float m = NEG_INF;
     for (int i = lane; i < span; i += 32) m = mx_nanmax(m, sc[gg * span + i]);
     m = mx_warp_max(m);
@@ -635,7 +682,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
     glob_max[tid] = m;
   }
   __syncthreads();
-  for (int gg = warp; gg < G; gg += DEC_THREADS / 32) {
+  for (int gg = warp; gg < G; gg += NT / 32) {
     const float m = glob_max[gg];
     float sum = 0.f;
     for (int i = lane; i < span; i += 32) {
@@ -659,7 +706,7 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
   // The normalized p, quantized along S per 32-block (a warp a block).
   const int nb = (n + 31) / 32;   // blocks holding view slots
-  for (int task = warp; task < G * nb; task += DEC_THREADS / 32) {
+  for (int task = warp; task < G * nb; task += NT / 32) {
     const int gg = task / nb, i = (task % nb) * 32 + lane;
     float pr = sc[gg * span + i] / glob_sum[gg];
     if (has_fmt) pr = mx_warp_quant(pr, f);
@@ -672,8 +719,8 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // lane (the K cast's layout, so v's cast along S over every slot, valid
   // or not, is mx_quad_quant); a lane walks the span's blocks in order,
   // then the four lanes' sums are added (xor 2, then xor 1).
-  for (int it = 0; it < (4 * dv + DEC_THREADS - 1) / DEC_THREADS; ++it) {
-    const int j = it * DEC_THREADS + tid, c = j >> 2, qt = j & 3;
+  for (int it = 0; it < (4 * dv + NT - 1) / NT; ++it) {
+    const int j = it * NT + tid, c = j >> 2, qt = j & 3;
     const bool live = c < dv;   // whole quads; dead ones still shuffle
     float acc[MAXG];
 #pragma unroll
@@ -704,13 +751,13 @@ mx_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cluster.sync();
   if (rank == 0)   // the partials summed in rank order
-    for (int i = tid; i < G * dv; i += DEC_THREADS) {
+    for (int i = tid; i < G * dv; i += NT) {
       float o = 0.f;
       dec_gather(cluster, part, i, splits, vals);
 #pragma unroll
       for (int r = 0; r < 8; ++r)
         if (r < splits) o += vals[r];
-      out[(long long)bh * G * dv + i] = __float2bfloat16_rn(o);
+      out[((long long)bh * Gt + g0) * dv + i] = __float2bfloat16_rn(o);
     }
   cluster.sync();   // every rank's shared memory lives until rank 0 is done
 }
@@ -727,7 +774,8 @@ static int fw_launch(const bf16* q, const bf16* k, const bf16* v, void* out,
                        smem);
   const int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  dim3 grid((unsigned)(BH * G), (unsigned)((Tq + FW_BM - 1) / FW_BM));
+  dim3 grid((unsigned)(BH * G), (unsigned)((Tq + FW_BM - 1) / FW_BM),
+            (unsigned)((dv + DV - 1) / DV));
   kern<<<grid, FW_THREADS, smem, s>>>(q, k, v, (OutT*)out, lse, G, Tq, Tk, d,
                                       dv, kind, window, q_offset, tile_k, vec,
                                       has_fmt, f, scale);
@@ -745,8 +793,8 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
                             int out_fp32, int has_fmt, int mbits,
                             int min_normal_exp, int e_max, float max_normal,
                             int scale_mode, float scale, void* stream) {
-  if (d > FLASH_MAXD || dv > MAXD || d <= 0 || dv <= 0 || tile_k <= 0 ||
-      (has_fmt && !qkv_hat))
+  if (d > FLASH_MAXD || dv > FLASH_MAXDV || d <= 0 || dv <= 0 ||
+      tile_k <= 0 || (has_fmt && !qkv_hat))
     return (int)cudaErrorInvalidValue;
   const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
                          scale_mode);
@@ -792,7 +840,9 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
              : fw_launch<DQ, DV, bf16>(qq, kk, vv, out, ll, BH, G, Tq, Tk,  \
                                        d, dv, kind, window, q_offset,       \
                                        tile_k, vec, has_fmt, f, scale, s)
-  if (d > MAXD) FW_CASE(192, 128);   // MLA: qk 192 (nope + rope), v 128
+  // recurrentgemma: qk 256, v 256 in chunks of 128 columns
+  if (d > 192 || dv > 128) FW_CASE(256, FW_DVC);
+  if (d > 128) FW_CASE(192, 128);   // MLA: qk 192 (nope + rope), v 128
   if (wide <= 32) FW_CASE(32, 32);
   if (wide <= 64) FW_CASE(64, 64);
   if (wide <= 96) FW_CASE(96, 96);
@@ -811,6 +861,7 @@ static long long dec_width(int d) {
 // Shared memory of a decode CTA, without (vsm 0) or with (vsm 1) the
 // span's V rows staged.
 static long long dec_smem(int G, int span, int d, int dv, int vsm) {
+  G = dec_group(G);
   const long long dvs = (dv + 7) / 8 * 8;
   return (vsm ? 2LL * span * dvs : 0) + 4LL * G * dec_width(d)
          + 4LL * G * span + 4LL * G * dv + 4LL * 4 * MAXG
@@ -821,21 +872,21 @@ static long long dec_smem(int G, int span, int d, int dv, int vsm) {
 // -1 when the shape does not fit the kernel (G, the head dims, a CTA's
 // shared memory).  The one place that holds the decode kernels' limits.
 extern "C" int mx_decode_smem_bytes(int G, int span, int d, int dv) {
-  if (G <= 0 || G > MAXG || d <= 0 || dv <= 0 || dv > MAXD || span <= 0)
+  if (G <= 0 || d <= 0 || dv <= 0 || dv > DEC_MAXDV || span <= 0)
     return -1;
   long long b = dec_smem(G, span, d, dv, 1);
   if (b > DEC_MAX_SMEM) b = dec_smem(G, span, d, dv, 0);
   return b > DEC_MAX_SMEM ? -1 : (int)b;
 }
 
-template <int LPR, bool PAGED>
+template <int LPR, bool PAGED, int NT>
 static int decode_cluster(const void* q, const void* k, const void* v,
                           const void* valid, void* out, int BH, int G, int S,
                           int splits, int span, int d, int dv, int H,
                           const DecRows& rows, long long valid_sb, int vec,
                           int vsm, int has_fmt, const MxFmt& f, float scale,
                           int smem, cudaStream_t s) {
-  auto kern = mx_decode_kernel<LPR, PAGED>;
+  auto kern = mx_decode_kernel<LPR, PAGED, NT>;
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
@@ -843,8 +894,9 @@ static int decode_cluster(const void* q, const void* k, const void* v,
     if (rc) return rc;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)BH, (unsigned)splits, 1);
-  cfg.blockDim = dim3(DEC_THREADS, 1, 1);
+  cfg.gridDim = dim3((unsigned)BH, (unsigned)splits,
+                     (unsigned)((G + dec_group(G) - 1) / dec_group(G)));
+  cfg.blockDim = dim3(NT, 1, 1);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -886,15 +938,22 @@ static int decode_launch(const void* q, const void* k, const void* v,
                             | rows.vss | rows.vsh;
   const int vec = d % 8 == 0 && dv % 8 == 0 && strides % 8 == 0 &&
                   ((uintptr_t)k | (uintptr_t)v) % 16 == 0;
-#define DEC_CASE(LPR)                                                       \
-  return decode_cluster<LPR, PAGED>(q, k, v, valid, out, BH, G, S, splits, \
-                                    span, d, dv, H, rows, valid_sb, vec,    \
-                                    vsm, has_fmt, f, scale, smem, s)
+#define DEC_CASE(LPR, NT)                                                   \
+  return decode_cluster<LPR, PAGED, NT>(q, k, v, valid, out, BH, G, S,      \
+                                        splits, span, d, dv, H, rows,       \
+                                        valid_sb, vec, vsm, has_fmt, f,     \
+                                        scale, smem, s)
+  if (G > MAXG) switch (dec_lanes(d)) {
+    case 4: DEC_CASE(4, DEC_WIDE_THREADS);
+    case 8: DEC_CASE(8, DEC_WIDE_THREADS);
+    case 16: DEC_CASE(16, DEC_WIDE_THREADS);
+    default: DEC_CASE(32, DEC_WIDE_THREADS);
+  }
   switch (dec_lanes(d)) {
-    case 4: DEC_CASE(4);
-    case 8: DEC_CASE(8);
-    case 16: DEC_CASE(16);
-    default: DEC_CASE(32);
+    case 4: DEC_CASE(4, DEC_THREADS);
+    case 8: DEC_CASE(8, DEC_THREADS);
+    case 16: DEC_CASE(16, DEC_THREADS);
+    default: DEC_CASE(32, DEC_THREADS);
   }
 #undef DEC_CASE
 }

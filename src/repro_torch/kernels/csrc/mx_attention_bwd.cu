@@ -24,11 +24,18 @@
 //     products (straight-through).  bf16 mode reads q and k in place.
 //   * Tiles are sized by the padded qk head dim and the padded v head dim
 //     apart (BwTile<DQ, DV>): q, k, dq and dk by DQ, v, dout and dv by DV
-//     (MLA: 192 against 128).
+//     (MLA: 192 against 128; recurrentgemma: 256 and 256).
 //   * dQ: one CTA per (bh, g, 64 query rows), 4 warps of 16 rows, looping
 //     over the live kv blocks (64 rows; 32 for qk head dims above 64).
 //   * dK/dV: one CTA per (bh, 64 kv rows), looping over g and the live q
 //     blocks inside itself, so the G sum of dk and dv needs no atomics.
+//     At qk 256 / v 256 (recurrentgemma) the dk and dv accumulators would
+//     be 128 + 128 registers a thread, over the 255 limit, so dk and dv
+//     run as two launches of the same kernel (PART 1 and 2): the dk pass
+//     forms S, dP and dS and accumulates dk alone; the dv pass forms S and
+//     P alone (no dP) and accumulates dv.  Each takes its terms in the
+//     order the joint pass would, so the grads are the same bits; S is
+//     formed in both.
 //   Both passes recompute S = Q^ K^T and dP = dO V^T with `mma.sync`
 //   m16n8k16 (bf16 in, fp32 accumulators in registers): the cast q and k,
 //   raw dout and raw v are all exact in bf16.  P = exp(S scale - lse)
@@ -60,7 +67,8 @@ namespace {
 constexpr int BW_THREADS = 128;   // 4 warps of 16 own rows
 constexpr int BW_BM = 64;         // own rows of a CTA
 
-constexpr int BW_MAXD = 192;      // qk head dim (v up to 128)
+constexpr int BW_MAXD = 256;      // qk head dim
+constexpr int BW_MAXDV = 256;     // v head dim
 
 // Shapes of the tiles for a padded qk head dim DQ and a padded v head dim
 // DV (multiples of 32): q, k and their gradients are DQ wide; v, dout and
@@ -219,7 +227,8 @@ mx_attn_bwd_dq_kernel(const bf16* __restrict__ qh, const bf16* __restrict__ kh,
     }
 }
 
-template <int DQ, int DV, typename OutT>
+// PART 0: dk and dv; PART 1: dk alone; PART 2: dv alone.
+template <int DQ, int DV, int PART, typename OutT>
 __global__ void __launch_bounds__(BW_THREADS)
 mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
                        const bf16* __restrict__ kh,
@@ -248,9 +257,12 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     return stage + s * C::STAGE + which * BN * LD;
   };
 
+  constexpr bool DK = PART != 2, DVP = PART != 1;
   mma_tile<C::DT, LD, BW_THREADS>(sK, kh + krow0 * d, d, BW_BM, nrows, d, vec);
-  mma_tile<C::DTV, LDV, BW_THREADS>(sV, v + krow0 * dv,
-      dv, BW_BM, nrows, dv, vec);
+  if constexpr (DK) {   // dP needs the own v rows; the dv pass forms none
+    mma_tile<C::DTV, LDV, BW_THREADS>(sV, v + krow0 * dv,
+        dv, BW_BM, nrows, dv, vec);
+  }
   const int ka = j0, kb = j0 + nrows - 1;
   const int nqb = (Tq + BN - 1) / BN, total = G * nqb;
   auto next_live = [&](int it) {
@@ -276,13 +288,14 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     }
   };
 
-  float dk_acc[C::DT][4], dv_acc[C::DTV][4];
+  constexpr int NK = DK ? C::DT : 1, NV = DVP ? C::DTV : 1;
+  float dk_acc[NK][4], dv_acc[NV][4];
 #pragma unroll
-  for (int j = 0; j < C::DT; ++j)
+  for (int j = 0; j < NK; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = 0.f;
 #pragma unroll
-  for (int j = 0; j < C::DTV; ++j)
+  for (int j = 0; j < NV; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dv_acc[j][e] = 0.f;
 
@@ -298,7 +311,9 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
     const int bs = (it % nqb) * BN;
     float pt[C::NT][4], dst[C::NT][4];   // P^T and dP^T, then dS^T
     mma_scores<C::NT, C::KS, LD>(pt, sK, st(s, sep ? 0 : 1), warp, lane);
-    mma_scores<C::NT, C::KSV, LDV>(dst, sV, st(s, 2), warp, lane);
+    if constexpr (DK) {
+      mma_scores<C::NT, C::KSV, LDV>(dst, sV, st(s, 2), warp, lane);
+    }
 #pragma unroll
     for (int j = 0; j < C::NT; ++j)
 #pragma unroll
@@ -311,43 +326,54 @@ mx_attn_bwd_dkv_kernel(const bf16* __restrict__ qh,
                                             lse_s[s * BN + qc]))
                            : 0.f;
         pt[j][e] = p;
-        dst[j][e] = __fmul_rn(
-            __fmul_rn(p, __fsub_rn(dst[j][e], dl_s[s * BN + qc])), scale);
+        if constexpr (DK) {
+          dst[j][e] = __fmul_rn(
+              __fmul_rn(p, __fsub_rn(dst[j][e], dl_s[s * BN + qc])), scale);
+        }
       }
 #pragma unroll
     for (int kk = 0; kk < C::NT / 2; ++kk) {   // dv += P^T dO, dk += dS^T Q
       uint32_t a[3][4];
-      bw_pieces(pt[2 * kk], pt[2 * kk + 1], a[0], a[1], a[2]);
-      mma_step<C::DTV, LDV, 3>(dv_acc, a, st(s, 2), kk, lane);
-      bw_pieces(dst[2 * kk], dst[2 * kk + 1], a[0], a[1], a[2]);
-      mma_step<C::DT, LD, 3>(dk_acc, a, st(s, 1), kk, lane);
+      if constexpr (DVP) {
+        bw_pieces(pt[2 * kk], pt[2 * kk + 1], a[0], a[1], a[2]);
+        mma_step<C::DTV, LDV, 3>(dv_acc, a, st(s, 2), kk, lane);
+      }
+      if constexpr (DK) {
+        bw_pieces(dst[2 * kk], dst[2 * kk + 1], a[0], a[1], a[2]);
+        mma_step<C::DT, LD, 3>(dk_acc, a, st(s, 1), kk, lane);
+      }
     }
     __syncthreads();   // this stage's reads are done before it is refilled
     s ^= 1;
     it = nx;
   }
   bw_wait<0>();
+  if constexpr (DK) {
 #pragma unroll
-  for (int j = 0; j < C::DT; ++j)
+    for (int j = 0; j < C::DT; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kr = warp * 16 + gq + 8 * (e >> 1);
-      const int col = 8 * j + 2 * tq + (e & 1);
-      if (kr < nrows && col < d)
-        mx_store<OutT>(dk + (krow0 + kr) * d + col, dk_acc[j][e]);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int kr = warp * 16 + gq + 8 * (e >> 1);
+        const int col = 8 * j + 2 * tq + (e & 1);
+        if (kr < nrows && col < d)
+          mx_store<OutT>(dk + (krow0 + kr) * d + col, dk_acc[j][e]);
+      }
+  }
+  if constexpr (DVP) {
 #pragma unroll
-  for (int j = 0; j < C::DTV; ++j)
+    for (int j = 0; j < C::DTV; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kr = warp * 16 + gq + 8 * (e >> 1);
-      const int col = 8 * j + 2 * tq + (e & 1);
-      if (kr < nrows && col < dv)
-        mx_store<OutT>(dvo + (krow0 + kr) * dv + col, dv_acc[j][e]);
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int kr = warp * 16 + gq + 8 * (e >> 1);
+        const int col = 8 * j + 2 * tq + (e & 1);
+        if (kr < nrows && col < dv)
+          mx_store<OutT>(dvo + (krow0 + kr) * dv + col, dv_acc[j][e]);
+      }
+  }
 }
 
-template <int DQ, int DV, typename OutT>
+// SPLIT: dk and dv in two launches (PART 1, then 2), else one (PART 0).
+template <int DQ, int DV, bool SPLIT, typename OutT>
 static int bw_launch(const bf16* q, const bf16* k, const bf16* v,
                      const bf16* dout, const bf16* qh, const bf16* kh,
                      const float* lse, const float* delta, void* dq,
@@ -356,7 +382,7 @@ static int bw_launch(const bf16* q, const bf16* k, const bf16* v,
                      int vec, float scale, cudaStream_t s) {
   constexpr int smem = BwTile<DQ, DV>::SMEM;
   auto dq_k = mx_attn_bwd_dq_kernel<DQ, DV, OutT>;
-  auto dkv_k = mx_attn_bwd_dkv_kernel<DQ, DV, OutT>;
+  auto dkv_k = mx_attn_bwd_dkv_kernel<DQ, DV, SPLIT ? 1 : 0, OutT>;
   cudaFuncSetAttribute(dq_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
   cudaFuncSetAttribute(dkv_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -373,7 +399,21 @@ static int bw_launch(const bf16* q, const bf16* k, const bf16* v,
   dkv_k<<<gk, BW_THREADS, smem, s>>>(qh, kh, q, v, dout, lse, delta,
                                      (OutT*)dk, (OutT*)dv_, G, Tq, Tk, d,
                                      dv, kind, window, q_offset, vec, scale);
-  return (int)cudaGetLastError();
+  rc = (int)cudaGetLastError();
+  if constexpr (SPLIT) {
+    if (rc) return rc;
+    auto dv_k = mx_attn_bwd_dkv_kernel<DQ, DV, 2, OutT>;
+    cudaFuncSetAttribute(dv_k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    rc = (int)cudaGetLastError();
+    if (rc) return rc;
+    dv_k<<<gk, BW_THREADS, smem, s>>>(qh, kh, q, v, dout, lse, delta,
+                                      (OutT*)dk, (OutT*)dv_, G, Tq, Tk, d,
+                                      dv, kind, window, q_offset, vec,
+                                      scale);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
 }
 
 // `delta` is a (BH * G * Tq) fp32 scratch; `qk_hat` a bf16 scratch of
@@ -390,7 +430,8 @@ extern "C" int mx_flash_bwd(const void* q, const void* k, const void* v,
                             int has_fmt, int mbits, int min_normal_exp,
                             int e_max, float max_normal, int scale_mode,
                             float scale, void* stream) {
-  if (d > BW_MAXD || dv > 128 || d <= 0 || dv <= 0 || (has_fmt && !qk_hat))
+  if (d > BW_MAXD || dv > BW_MAXDV || d <= 0 || dv <= 0 ||
+      (has_fmt && !qk_hat))
     return (int)cudaErrorInvalidValue;
   const MxFmt f = mx_fmt(mbits, min_normal_exp, e_max, max_normal,
                          scale_mode);
@@ -412,20 +453,22 @@ extern "C" int mx_flash_bwd(const void* q, const void* k, const void* v,
                           | (uintptr_t)dout | (uintptr_t)sq | (uintptr_t)sk;
   const int vec = d % 8 == 0 && dv % 8 == 0 && align % 16 == 0;
   const int wide = max(d, dv);
-#define BW_CASE(DQ, DV)                                                      \
+#define BW_CASE(DQ, DV, SPLIT)                                               \
   return out_fp32                                                            \
-             ? bw_launch<DQ, DV, float>(                                     \
+             ? bw_launch<DQ, DV, SPLIT, float>(                              \
                    qq, kk, (const bf16*)v, (const bf16*)dout, sq, sk,        \
                    (const float*)lse, (const float*)delta, dq, dk, dv_, BH,  \
                    G, Tq, Tk, d, dv, kind, window, q_offset, vec, scale, s)  \
-             : bw_launch<DQ, DV, bf16>(                                      \
+             : bw_launch<DQ, DV, SPLIT, bf16>(                               \
                    qq, kk, (const bf16*)v, (const bf16*)dout, sq, sk,        \
                    (const float*)lse, (const float*)delta, dq, dk, dv_, BH,  \
                    G, Tq, Tk, d, dv, kind, window, q_offset, vec, scale, s)
-  if (d > 128) BW_CASE(192, 128);   // MLA: qk 192 (nope + rope), v 128
-  if (wide <= 32) BW_CASE(32, 32);
-  if (wide <= 64) BW_CASE(64, 64);
-  if (wide <= 96) BW_CASE(96, 96);
-  BW_CASE(128, 128);
+  // recurrentgemma: qk 256, v 256, dk and dv in separate passes
+  if (d > 192 || dv > 128) BW_CASE(256, 256, true);
+  if (d > 128) BW_CASE(192, 128, false);   // MLA: qk 192 (nope + rope), v 128
+  if (wide <= 32) BW_CASE(32, 32, false);
+  if (wide <= 64) BW_CASE(64, 64, false);
+  if (wide <= 96) BW_CASE(96, 96, false);
+  BW_CASE(128, 128, false);
 #undef BW_CASE
 }

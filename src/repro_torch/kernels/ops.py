@@ -528,9 +528,10 @@ def mx_matmul_wgrad_lanes(x: torch.Tensor, dy: torch.Tensor,
     return dw
 
 
-#: The flash kernels' head dims: qk up to FLASH_MAX_D (MLA's nope + rope
-#: at DeepSeek-V2's widths, 128 + 64) and v up to FLASH_MAX_DV.
-FLASH_MAX_D, FLASH_MAX_DV = 192, 128
+#: The flash kernels' head dims: qk up to FLASH_MAX_D and v up to
+#: FLASH_MAX_DV (recurrentgemma's 256; MLA's nope + rope at DeepSeek-V2's
+#: widths, 128 + 64, against v 128, lies inside).
+FLASH_MAX_D, FLASH_MAX_DV = 256, 256
 
 
 def _check_flash_dims(name: str, d: int, dv: int) -> None:
@@ -538,7 +539,7 @@ def _check_flash_dims(name: str, d: int, dv: int) -> None:
         raise NotImplementedError(
             f"{name}: qk head dim {d}, v head dim {dv}: the flash kernels "
             f"take qk up to {FLASH_MAX_D} and v up to {FLASH_MAX_DV}; wider "
-            "heads (recurrentgemma's 256) are ROADMAP Queue A item 4")
+            "heads are ROADMAP Queue A item 4")
 
 
 def mx_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,11 +3,13 @@
 Counterpart of ``repro.models.attention`` for dense attention.  Projections
 go through ``qdense`` (the MX GEMM kernels); mixing goes through
 ``mx_contract(kind="flash_attn")`` on the folded (BH, G, T, d) layout for
-training, prefill and prefill chunks, ``kind="attn_decode"`` for one-token
-decode against a slab cache and ``kind="attn_decode_paged"`` for one-token
-decode against page pools through a page table.  QK-norm is an
-RMSNorm without bias whatever ``cfg.norm`` says, and runs without the
-layer-norm quantization, as in the reference.
+training, prefill and prefill chunks (``kind="window"`` specs on windowed
+layers), ``kind="attn_decode"`` for one-token decode against a slab cache
+(global, or a ring buffer on windowed layers) and
+``kind="attn_decode_paged"`` for one-token decode against page pools
+through a page table.  QK-norm is an RMSNorm without bias whatever
+``cfg.norm`` says, and runs without the layer-norm quantization, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -97,49 +99,70 @@ def attention(p, x, *, qcfg: QuantConfig, n_heads: int, n_kv: int,
 def attention_prefill(p, x, *, qcfg: QuantConfig, n_heads: int, n_kv: int,
                       d_head: int, positions, spec: AttnSpec,
                       rope_theta: float = 1e4):
-    """Full-sequence attention plus the zero-padded (B, cache_len, Hkv, d)
-    decode cache.  Every prompt position is written, the engine's bucket
-    padding included: decode quantizes v along the whole cache axis, so
-    those pad rows are part of the numbers, as in the reference."""
+    """Full-sequence attention plus the decode cache.  A global layer's
+    cache is the zero-padded (B, cache_len, Hkv, d) buffer with every
+    prompt position written, the engine's bucket padding included: decode
+    quantizes v along the whole cache axis, so those pad rows are part of
+    the numbers, as in the reference.  A windowed layer (``spec.kind ==
+    "window"``) returns the ring of ``min(cache_len, window)`` slots with
+    the last ``min(T, ring)`` tokens at slots ``position % ring`` (older
+    tokens would have been overwritten by token stepping)."""
     B, T = x.shape[:2]
+    window = spec.window if spec.kind == "window" else 0
     cache_len = spec.cache_len
-    if T > cache_len:
+    if not window and T > cache_len:
         raise ValueError(f"prompt length {T} exceeds cache_len {cache_len}")
     q, k, v = _project_qkv(p, x, qcfg, n_heads, n_kv, d_head, positions,
                            rope_theta)
     o = flash_attention(q, k, v, qcfg, spec)
     out = qdense(p["wo"], o.reshape(B, T, n_heads * d_head), qcfg)
-    ck = k.new_zeros((B, cache_len) + k.shape[2:])
-    cv = v.new_zeros((B, cache_len) + v.shape[2:])
-    ck[:, :T] = k
-    cv[:, :T] = v
+    ring = min(cache_len, window) if window else cache_len
+    m = min(T, ring)
+    slots = torch.arange(T - m, T, device=x.device) % ring
+    ck = k.new_zeros((B, ring) + k.shape[2:])
+    cv = v.new_zeros((B, ring) + v.shape[2:])
+    ck[:, slots] = k[:, T - m:]
+    cv[:, slots] = v[:, T - m:]
     return out, {"k": ck, "v": cv}
 
 
-def decode_valid_mask(pos: torch.Tensor, S: int) -> torch.Tensor:
-    """(B, S) validity of a global cache at per-row positions ``pos``."""
+def decode_valid_mask(pos: torch.Tensor, S: int,
+                      window: int = 0) -> torch.Tensor:
+    """(B, S) cache-slot validity at per-row positions ``pos``.  A ring of
+    S slots (``window > 0``): slot s is valid if it was written within the
+    last ``min(pos + 1, window)`` steps.  A global cache: slots up to
+    ``pos``."""
     kv_pos = torch.arange(S, device=pos.device)
+    if window > 0:
+        age = ((pos % S)[:, None] - kv_pos[None, :]) % S
+        return age <= torch.clamp(pos, max=window - 1)[:, None]
     return kv_pos[None, :] <= pos[:, None]
 
 
 def attention_decode(p, x, cache, *, qcfg: QuantConfig, n_heads: int,
                      n_kv: int, d_head: int, pos: torch.Tensor,
+                     spec: Optional[AttnSpec] = None,
                      rope_theta: float = 1e4):
     """One-token decode.  x (B, 1, D); cache {"k", "v"}: (B, S, Hkv, d);
-    pos (B,) int.  The new K/V row is written into the cache in place (the
-    reference returns a new cache and donates the old buffers), and the
-    decode kernel reads the cache in this layout through strides."""
+    pos (B,) int.  ``spec`` from ``LMConfig.decode_spec``: ``kind="ring"``
+    makes the cache a ring buffer (slot ``pos % S``), otherwise it is
+    global (slot ``pos``).  The new K/V row is written into the cache in
+    place before it is attended (the reference returns a new cache and
+    donates the old buffers), and the decode kernel reads the cache in
+    this layout through strides."""
     B = x.shape[0]
     S = cache["k"].shape[1]
+    window = spec.window if spec is not None and spec.kind == "ring" else 0
     q, k_new, v_new = _project_qkv(p, x, qcfg, n_heads, n_kv, d_head,
                                    pos[:, None], rope_theta)
     rows = torch.arange(B, device=x.device)
-    cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+    slot = pos % S if window else pos
+    cache["k"][rows, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, slot] = v_new[:, 0].to(cache["v"].dtype)
     G = n_heads // n_kv
     qf = q[:, 0].reshape(B * n_kv, G, d_head)
     o = mx_contract(qf, (cache["k"], cache["v"]), qcfg, kind="attn_decode",
-                    valid=decode_valid_mask(pos, S))
+                    valid=decode_valid_mask(pos, S, window))
     o = o.reshape(B, 1, n_heads * d_head).to(x.dtype)
     return qdense(p["wo"], o, qcfg), cache
 

@@ -20,8 +20,17 @@ PARAM_DTYPE = torch.float32
 COMPUTE_DTYPE = torch.bfloat16
 
 __all__ = ["dense_init", "qdense", "norm_init", "apply_norm", "embed_init",
-           "embed_lookup", "rope", "kaiming_uniform", "trunc_normal",
+           "embed_lookup", "rope", "conv_tail", "kaiming_uniform",
+           "trunc_normal",
            "PARAM_DTYPE", "COMPUTE_DTYPE"]
+
+
+def conv_tail(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The last ``width`` inputs of a causal conv stream (B, T, d), zero-
+    padded on the left below T = width: the decode carry of a depthwise
+    conv of width ``width + 1`` after the whole sequence."""
+    zeros = x.new_zeros((x.shape[0], width, x.shape[-1]))
+    return torch.cat([zeros, x], 1)[:, -width:]
 
 
 def trunc_normal(shape, std: float, generator: torch.Generator

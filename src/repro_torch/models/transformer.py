@@ -1,7 +1,8 @@
 """Decoder LM assembly: training forward and loss, prefill and decode.
 
 Counterpart of ``repro.models.transformer`` for ``"attn"`` blocks, dense
-or MoE, with multi-head attention or MLA (``models.mla``).  Parameters
+or MoE, with multi-head attention or MLA (``models.mla``), global or
+windowed, and Griffin's ``"rec"`` blocks (``models.rglru``).  Parameters
 are a plain dict with per-layer entries:
 
     {"embed": {"table"}, "layers": [block, ...], "final_ln": {...},
@@ -9,24 +10,30 @@ are a plain dict with per-layer entries:
 
 where each ``block`` has the reference's per-block names (``ln1``, ``attn``,
 ``ln2``, and ``mlp``, or on an MoE layer ``moe`` and ``shared``); on an MLA
-config ``attn`` holds ``mla_init``'s leaves.  An MoE config's first
+config ``attn`` holds ``mla_init``'s leaves, and a ``"rec"`` block holds
+``rec`` (``rec_block_init``'s leaves) in place of ``attn``.  An MoE config's first
 ``first_dense`` layers are dense (the reference's leading ``"dense_attn"``
 group).  Layer ``i`` is the reference's stacked group entry
 ``blocks[g]["b{j}"][r]`` in plan order (see ``convert.params_from_jax``).
 The decode cache is a list with one ``{"k", "v"}`` dict of (B, S, Hkv, d)
 bf16 tensors per layer (on MLA, ``{"ckv", "kr"}`` latents of (B, S,
-kv_lora) and (B, S, rope_dim)), updated in place; the paged cache
+kv_lora) and (B, S, rope_dim); on a windowed layer a ring of min(S,
+window) slots; on a ``"rec"`` layer ``{"conv"}`` (B, 3, d_rnn) bf16 and
+``{"h"}`` (B, d_rnn) fp32), updated in place; the paged cache
 (``init_cache_paged``) is the same list with (N, ps, ...) page pools in
-place of the (B, S, ...) rows, addressed through one (B, P) page table.
+place of the (B, S, ...) rows of every layer that pages (``kind_paged``:
+global attention and MLA), addressed through one (B, P) page table; ring
+and recurrent layers keep their slab rows there.
 Layers run as a Python loop over that list; the reference's activation
 checkpointing (``remat``) is not ported yet: at olmo-paper's size the
 activations fit.
 
-Recurrent, xLSTM, windowed, encoder-decoder, frontend and
-tied-embedding configs raise ``NotImplementedError``: they come with a
-later slice of the port (ROADMAP Queue A item 4).  MoE and MLA configs
+xLSTM, encoder-decoder, frontend and tied-embedding configs raise
+``NotImplementedError``: they come with a later slice of the port
+(ROADMAP Queue A item 4).  MoE, MLA, windowed and recurrent configs
 prefill whole: ``lm_prefill_chunk`` raises for them (``chunk_supported``),
-and the paged engine pages their cache after a whole-prompt prefill.
+and the paged engine pages their cache (or inserts its slab rows) after a
+whole-prompt prefill.
 """
 from __future__ import annotations
 
@@ -47,11 +54,14 @@ from .mla import (mla_apply, mla_decode, mla_decode_paged, mla_init,
                   mla_prefill)
 from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init
+from .rglru import (rec_block_apply, rec_block_decode, rec_block_init,
+                    rec_block_prefill)
 
 __all__ = ["LMConfig", "block_plan", "lm_init", "lm_apply", "lm_loss",
            "init_cache", "lm_prefill", "lm_decode_step", "prefill_supported",
            "chunk_supported", "check_supported", "init_cache_paged",
-           "lm_prefill_chunk"]
+           "lm_prefill_chunk", "kind_paged", "paged_leaf_mask",
+           "layer_kinds"]
 
 #: The capacity factor of MoE routing in prefill and decode (the
 #: reference's serving value: the training capacity would drop prompt
@@ -106,20 +116,29 @@ class LMConfig:
         """The width of a query and key head (MLA's ``nope + rope_dim``)."""
         return (self.nope_dim + self.rope_dim) if self.mla else self.d_head
 
-    def attn_spec(self, cache_len: int = 0) -> AttnSpec:
-        """Causal prefill AttnSpec with the config's tiles."""
+    def attn_spec(self, kind: str = "attn", cache_len: int = 0) -> AttnSpec:
+        """Training/prefill AttnSpec of a block kind with the config's
+        tiles.  Only "attn" blocks take the local window ("dense_attn"
+        lead layers and MLA attend globally); ``cache_len`` is set for
+        prefill specs."""
+        window = self.window if (kind == "attn" and not self.mla) else 0
         return dataclasses.replace(
-            AttnSpec.training(causal=True, q_chunk=self.q_chunk,
-                              kv_chunk=self.kv_chunk), cache_len=cache_len)
+            AttnSpec.training(window=window,
+                              q_chunk=self.q_chunk, kv_chunk=self.kv_chunk),
+            cache_len=cache_len)
+
+    def decode_spec(self, kind: str = "attn", cache_len: int = 0) -> AttnSpec:
+        """One-token slab decode AttnSpec: a ring buffer on windowed layers
+        (paged layers decode through ``attention_decode_paged``)."""
+        window = self.window if (kind == "attn" and not self.mla) else 0
+        return AttnSpec.decode(window=window, cache_len=cache_len)
 
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for configs outside this slice of the port."""
     later = []
-    if set(cfg.block_pattern) != {"attn"}:
+    if not set(cfg.block_pattern) <= {"attn", "rec"}:
         later.append(f"block kinds {sorted(set(cfg.block_pattern))}")
-    if cfg.window:
-        later.append("windowed (ring-buffer) attention")
     if cfg.enc_layers or cfg.frontend != "none":
         later.append("encoder-decoder / modality frontends")
     if cfg.tie_embeddings:
@@ -127,9 +146,10 @@ def check_supported(cfg: LMConfig) -> None:
     if later:
         raise NotImplementedError(
             f"config {cfg.name!r} needs {', '.join(later)}: the port serves "
-            "'attn' stacks, dense or MoE, with MHA/GQA or MLA; the other "
-            "architectures come with a later slice that ports the recurrent "
-            "blocks (ROADMAP Queue A item 4)")
+            "'attn' stacks, dense or MoE, with MHA/GQA or MLA, global or "
+            "windowed, and Griffin's 'rec' blocks; the other architectures "
+            "(xLSTM first) come with a later slice of the port (ROADMAP "
+            "Queue A item 4)")
 
 
 def block_plan(cfg: LMConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -150,7 +170,7 @@ def block_plan(cfg: LMConfig) -> List[Tuple[Tuple[str, ...], int]]:
     return groups
 
 
-def _layer_kinds(cfg: LMConfig) -> List[str]:
+def layer_kinds(cfg: LMConfig) -> List[str]:
     """Each layer's block kind, in the order of ``params["layers"]``."""
     return [kind for pattern, n_rep in block_plan(cfg)
             for _ in range(n_rep) for kind in pattern]
@@ -163,8 +183,9 @@ def prefill_supported(cfg: LMConfig) -> bool:
 
 def chunk_supported(cfg: LMConfig) -> bool:
     """Whether ``lm_prefill_chunk`` covers this config: a pure global-
-    attention decoder stack.  MoE configs prefill whole: their routing is
-    batch-level, so a prefix is not an append-only K/V sequence."""
+    attention decoder stack.  Windowed, recurrent, MLA and MoE configs
+    prefill whole: their prefix state is not an append-only K/V sequence
+    (ring slots, recurrent state, latents, batch-level routing)."""
     return (prefill_supported(cfg) and not cfg.mla and cfg.window == 0
             and cfg.n_experts == 0 and cfg.d_rnn == 0
             and set(cfg.block_pattern) <= {"attn"})
@@ -175,6 +196,10 @@ def _block_init(generator: torch.Generator, kind: str, cfg: LMConfig):
     gd = generator.device
     p = {"ln1": norm_init(cfg.d_model, cfg.norm, gd),
          "ln2": norm_init(cfg.d_model, cfg.norm, gd)}
+    if kind == "rec":
+        p["rec"] = rec_block_init(generator, cfg.d_model, cfg.d_rnn, L)
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, L)
+        return p
     if cfg.mla:
         p["attn"] = mla_init(generator, cfg.d_model, cfg.n_heads, cfg.q_lora,
                              cfg.kv_lora, cfg.nope_dim, cfg.rope_dim,
@@ -204,7 +229,7 @@ def lm_init(cfg: LMConfig, generator: torch.Generator, device=None
     gd = generator.device
     params = {"embed": embed_init(generator, cfg.vocab, cfg.d_model),
               "layers": [_block_init(generator, kind, cfg)
-                         for kind in _layer_kinds(cfg)]}
+                         for kind in layer_kinds(cfg)]}
     params["final_ln"] = norm_init(cfg.d_model, cfg.norm, gd)
     params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab,
                                    std=1.0 / math.sqrt(cfg.d_model))
@@ -220,35 +245,73 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def _cache_shapes(cfg: LMConfig, lead: Tuple[int, int]) -> dict:
-    """One layer's decode-cache leaves with ``lead`` = (B, S) rows or
-    (N, ps) pages in front: K/V heads, or MLA's latents."""
+def kind_paged(kind: str, cfg: LMConfig) -> bool:
+    """Whether a block kind's decode state lives in page pools: global
+    attention and MLA latents page; ring-buffer (windowed) layers and
+    recurrent state keep their slab rows (O(window) and O(1) a row:
+    nothing to page)."""
+    if kind not in ("attn", "dense_attn"):
+        return False
+    return cfg.mla or not (cfg.window and kind == "attn")
+
+
+def _cache_shapes(cfg: LMConfig, kind: str, lead: Tuple[int, int]) -> dict:
+    """One layer's decode-cache leaves, (shape, dtype), with ``lead`` =
+    (B, S) rows or (N, ps) pages in front: K/V heads (a ring of min(S,
+    window) slots on a windowed layer), MLA's latents, or a ``"rec"``
+    layer's conv window and fp32 state."""
+    bf = torch.bfloat16
+    if kind == "rec":
+        B = lead[0]
+        return {"conv": ((B, 3, cfg.d_rnn), bf),
+                "h": ((B, cfg.d_rnn), torch.float32)}
     if cfg.mla:
-        return {"ckv": lead + (cfg.kv_lora,), "kr": lead + (cfg.rope_dim,)}
+        return {"ckv": (lead + (cfg.kv_lora,), bf),
+                "kr": (lead + (cfg.rope_dim,), bf)}
+    if cfg.window and kind == "attn":
+        lead = (lead[0], min(lead[1], cfg.window))
     shp = lead + (cfg.n_kv_heads, cfg.d_head)
-    return {"k": shp, "v": shp}
+    return {"k": (shp, bf), "v": (shp, bf)}
+
+
+def _zeros(cfg: LMConfig, kind: str, lead, device) -> dict:
+    return {n: torch.zeros(shp, dtype=dt, device=device)
+            for n, (shp, dt) in _cache_shapes(cfg, kind, lead).items()}
 
 
 def init_cache(cfg: LMConfig, B: int, S: int, device=None) -> List[dict]:
-    """Zeroed bf16 decode cache per layer: (B, S, Hkv, d) K/V, or on MLA
-    the (B, S, kv_lora) / (B, S, rope_dim) latents."""
+    """Zeroed decode cache per layer: bf16 (B, S, Hkv, d) K/V (a ring of
+    min(S, window) slots on windowed layers), MLA's (B, S, kv_lora) /
+    (B, S, rope_dim) latents, or a ``"rec"`` layer's (B, 3, d_rnn) bf16
+    conv window and (B, d_rnn) fp32 state."""
     check_supported(cfg)
     device = resolve_device(device)
-    return [{n: torch.zeros(shp, dtype=torch.bfloat16, device=device)
-             for n, shp in _cache_shapes(cfg, (B, S)).items()}
-            for _ in range(cfg.n_layers)]
+    return [_zeros(cfg, kind, (B, S), device) for kind in layer_kinds(cfg)]
 
 
 def init_cache_paged(cfg: LMConfig, n_pages: int, page_size: int,
-                     device=None) -> List[dict]:
-    """Paged decode cache: per layer, zeroed bf16 (N, ps, ...) pools of its
-    leaves (K/V heads, or MLA's latents), shared by every row through the
-    engine's page table (every ported layer pages)."""
+                     device=None, *, B: int = 0, S: int = 0) -> List[dict]:
+    """Paged decode cache: per layer that pages (``kind_paged``), zeroed
+    bf16 (N, ps, ...) pools of its leaves (K/V heads, or MLA's latents),
+    shared by every row through the engine's page table; every other layer
+    keeps ``init_cache``'s slab rows, B rows of capacity S (which must be
+    given when the config has such layers)."""
     check_supported(cfg)
     device = resolve_device(device)
-    return [{n: torch.zeros(shp, dtype=torch.bfloat16, device=device)
-             for n, shp in _cache_shapes(cfg, (n_pages, page_size)).items()}
-            for _ in range(cfg.n_layers)]
+    kinds = layer_kinds(cfg)
+    if not all(kind_paged(k, cfg) for k in kinds) and not (B and S):
+        raise ValueError(f"config {cfg.name!r} keeps slab leaves in its "
+                         "paged cache: give their rows B and capacity S")
+    return [_zeros(cfg, kind, (n_pages, page_size) if kind_paged(kind, cfg)
+                   else (B, S), device) for kind in kinds]
+
+
+def paged_leaf_mask(cfg: LMConfig) -> List[dict]:
+    """``init_cache_paged``'s structure with a bool per leaf: True for a
+    page pool, False for a slab leaf."""
+    return [{n: kind_paged(kind, cfg) for n in _cache_shapes(cfg, kind,
+                                                             (1, 1))}
+            for kind in layer_kinds(cfg)]
 
 
 def _block_rest(h, lp, cfg: LMConfig, qcfg: QuantConfig, a,
@@ -288,14 +351,16 @@ def lm_apply(params, batch, cfg: LMConfig, qcfg: QuantConfig):
     B, T = tok.shape
     h = embed_lookup(params["embed"], tok)
     positions = torch.arange(T, device=tok.device)[None].expand(B, T)
-    spec = cfg.attn_spec()
     aux = torch.zeros((), dtype=torch.float32, device=tok.device)
-    for lp in params["layers"]:
+    for kind, lp in zip(layer_kinds(cfg), params["layers"]):
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
-        apply = mla_apply if cfg.mla else attention
-        kw = _mla_kw(cfg) if cfg.mla else _attn_kw(cfg)
-        a = apply(lp["attn"], hn, qcfg=qcfg, positions=positions, spec=spec,
-                  **kw)
+        if kind == "rec":
+            a = rec_block_apply(lp["rec"], hn, qcfg)
+        else:
+            apply = mla_apply if cfg.mla else attention
+            kw = _mla_kw(cfg) if cfg.mla else _attn_kw(cfg)
+            a = apply(lp["attn"], hn, qcfg=qcfg, positions=positions,
+                      spec=cfg.attn_spec(kind), **kw)
         h, la = _block_rest(h, lp, cfg, qcfg, a, cfg.capacity_factor)
         if la is not None:
             aux = aux + la
@@ -342,14 +407,16 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
     B, T = tokens.shape
     h = embed_lookup(params["embed"], tokens)
     positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
-    spec = cfg.attn_spec(cache_len=max_len)
     caches = []
-    for lp in params["layers"]:
+    for kind, lp in zip(layer_kinds(cfg), params["layers"]):
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
-        prefill = mla_prefill if cfg.mla else attention_prefill
-        kw = _mla_kw(cfg) if cfg.mla else _attn_kw(cfg)
-        a, c = prefill(lp["attn"], hn, qcfg=qcfg, positions=positions,
-                       spec=spec, **kw)
+        if kind == "rec":
+            a, c = rec_block_prefill(lp["rec"], hn, qcfg)
+        else:
+            prefill = mla_prefill if cfg.mla else attention_prefill
+            kw = _mla_kw(cfg) if cfg.mla else _attn_kw(cfg)
+            a, c = prefill(lp["attn"], hn, qcfg=qcfg, positions=positions,
+                           spec=cfg.attn_spec(kind, cache_len=max_len), **kw)
         h, _ = _block_rest(h, lp, cfg, qcfg, a, SERVE_CAPACITY)
         caches.append(c)
     h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
@@ -407,29 +474,40 @@ def lm_decode_step(params, cache: List[dict], tok: torch.Tensor,
     """One decode step.  tok (B, 1) int; pos (B,) per-row positions (a
     scalar broadcasts).  Writes the new K/V into ``cache`` in place and
     returns (logits (B, vocab), cache).  With ``page_table`` ((B, P)
-    int32), ``cache`` is ``init_cache_paged``'s pools and every layer
+    int32), ``cache`` is ``init_cache_paged``'s and every layer that pages
     decodes through the table; ``live`` (n,) long names the rows whose
-    tail page is mapped (see ``paged_write_slots``).  An MLA config decodes
-    in the absorbed form on its latent cache (``mla_decode`` /
-    ``mla_decode_paged``)."""
+    tail page is mapped (see ``paged_write_slots``).  Ring (windowed) and
+    ``"rec"`` layers decode on their slab rows either way, every row live
+    or not.  An MLA config decodes in the absorbed form on its latent cache
+    (``mla_decode`` / ``mla_decode_paged``)."""
     check_supported(cfg)
     B = tok.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.long, device=tok.device)
     pos = pos.expand(B) if pos.ndim == 0 else pos
     kw = dict(qcfg=qcfg, pos=pos,
               **(_mla_kw(cfg) if cfg.mla else _attn_kw(cfg)))
-    decode = mla_decode if cfg.mla else attention_decode
-    if page_table is not None:
-        # The write slots and the mask are the same in every layer.
-        ps = next(iter(cache[0].values())).shape[1]
-        kw.update(page_table=page_table,
-                  slots=paged_write_slots(page_table, pos, ps, live),
-                  valid=paged_valid_mask(page_table, pos, ps))
-        decode = mla_decode_paged if cfg.mla else attention_decode_paged
+    kinds = layer_kinds(cfg)
+    paged = [page_table is not None and kind_paged(k, cfg) for k in kinds]
+    pkw = {}
+    if any(paged):
+        # The write slots and the mask are the same in every paged layer.
+        ps = next(iter(cache[paged.index(True)].values())).shape[1]
+        pkw = dict(kw, page_table=page_table,
+                   slots=paged_write_slots(page_table, pos, ps, live),
+                   valid=paged_valid_mask(page_table, pos, ps))
     h = embed_lookup(params["embed"], tok)
-    for lp, lc in zip(params["layers"], cache):
+    for kind, pg, lp, lc in zip(kinds, paged, params["layers"], cache):
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
-        a, _ = decode(lp["attn"], hn, lc, **kw)
+        if kind == "rec":
+            a, _ = rec_block_decode(lp["rec"], hn, lc, qcfg)
+        elif pg:
+            decode = mla_decode_paged if cfg.mla else attention_decode_paged
+            a, _ = decode(lp["attn"], hn, lc, **pkw)
+        elif cfg.mla:
+            a, _ = mla_decode(lp["attn"], hn, lc, **kw)
+        else:
+            a, _ = attention_decode(lp["attn"], hn, lc,
+                                    spec=cfg.decode_spec(kind), **kw)
         h, _ = _block_rest(h, lp, cfg, qcfg, a, SERVE_CAPACITY)
     h = apply_norm(params["final_ln"], h, qcfg, cfg.norm)
     return qdense(params["lm_head"], h[:, 0], qcfg), cache

@@ -10,10 +10,11 @@ the KV state.
 :class:`ServeEngine` (slab cache):
   * Prefill is one fused ``lm_prefill`` pass per request.  Prompts are
     right-padded to power-of-two buckets (>= 16) unless
-    ``bucket_prompts=False``: padded cache slots sit beyond the causal mask
-    until a decode step overwrites them.  Their K/V are written as the
-    reference writes them, since decode quantizes V along the whole cache
-    axis.
+    ``bucket_prompts=False``, or unless padding would not be inert
+    (``pad_safe``: MoE, windowed and recurrent configs prefill at the exact
+    length): padded cache slots sit beyond the causal mask until a decode
+    step overwrites them.  Their K/V are written as the reference writes
+    them, since decode quantizes V along the whole cache axis.
   * Admission is two-phase: every admission's prefill, first-token sample
     and row insert is issued before any result is read back, so the host
     does not wait on one admission's device work before queuing the next.
@@ -26,10 +27,13 @@ maps only the pages its length needs, prompts prefill one chunk per
 ``step()`` interleaved with live decodes (``lm_prefill_chunk``), full
 prompt pages are shared across requests by content, and page pressure is
 resolved by LRU eviction of unreferenced cached pages or LIFO preemption of
-the newest request.  Configs that cannot prefill in chunks (MoE, MLA)
-prefill each prompt whole and page the resulting cache ("pagify").  Decode
+the newest request.  Configs that cannot prefill in chunks (MoE, MLA,
+windowed, recurrent) prefill each prompt whole and page the resulting
+cache ("pagify"); the leaves of layers that do not page (ring buffers,
+recurrent state) are copied into the request's slab row instead.  Decode
 goes through the page table (the paged decode kernel on CUDA; MLA's
-absorbed decode gathers its latent pages).
+absorbed decode gathers its latent pages), and on the slab rows for the
+other layers.
 
 Runs on ``cuda`` unless ``device="cpu"`` is passed; raises without CUDA.
 """
@@ -44,9 +48,10 @@ import torch
 
 from repro_torch.core import QuantConfig
 from repro_torch.devices import resolve_device
-from repro_torch.models import (LMConfig, check_supported, chunk_supported,
-                                init_cache, init_cache_paged, lm_decode_step,
-                                lm_prefill, lm_prefill_chunk)
+from repro_torch.models import (LMConfig, block_plan, check_supported,
+                                chunk_supported, init_cache,
+                                init_cache_paged, lm_decode_step, lm_prefill,
+                                lm_prefill_chunk, paged_leaf_mask)
 from repro_torch.runtime import Journal, MemoryLedger
 from .pages import PageAllocator, gather_prior, prefix_chain, \
     write_chunk_pages, zero_pages
@@ -99,10 +104,14 @@ class ServeEngine:
         self.cfg = cfg
         self.qcfg = qcfg
         self.max_len = max_len
-        # Bucketing is causally inert for the purely positional caches of
-        # the ported (global attention) stacks, but not under MoE, where
-        # padded tokens would take expert capacity from real ones.
-        self.pad_safe = bucket_prompts and cfg.n_experts == 0
+        # Bucketing is causally inert only for purely positional caches:
+        # not with a ring buffer or recurrent state, which the padding
+        # would run through, and not under MoE, where padded tokens would
+        # take expert capacity from real ones.
+        kinds = {k for pat, _ in block_plan(cfg) for k in pat}
+        self.pad_safe = (bucket_prompts and cfg.window == 0
+                         and cfg.n_experts == 0
+                         and kinds <= {"attn", "dense_attn"})
         self.sched = Scheduler(max_batch, max_len, eos_id)
         self.cache = self._init_cache()
         self.events = Journal()
@@ -302,10 +311,15 @@ class PagedServeEngine(ServeEngine):
     (``chunk_supported``: MoE, MLA) prefill the whole prompt in one
     ``step()`` and write the one-row cache into the request's pages
     ("pagify", the reference's path), every page of the request, shared
-    prefix pages included, as the reference writes them.  Every leaf of
-    the cache is a page pool (every ported layer kind pages); a pool's
-    at-rest rule is "k" or "v" by its name, and "raw" (stored as it is)
-    for MLA's latents.
+    prefix pages included, as the reference writes them.  The leaves of
+    the layers that page (``paged_leaf_mask``: global attention and MLA)
+    are page pools, a pool's at-rest rule "k" or "v" by its name, and
+    "raw" (stored as it is) for MLA's latents; the other layers' leaves
+    (ring buffers, recurrent state) are slab rows of ``max_batch`` x
+    ``max_len``, which pagify fills with the request's row.  Such rows
+    hide behind no page-table sentinel, so a job is placed in the
+    ``step()`` whose prefill finished it, before the decode step writes
+    every row.
     """
 
     def __init__(self, params, cfg: LMConfig, qcfg: QuantConfig, *,
@@ -335,24 +349,29 @@ class PagedServeEngine(ServeEngine):
         self._reserved: Set[int] = set()
         self._ready: List[Tuple[_PrefillJob, torch.Tensor]] = []
         self._preemptions = 0
-        # Every ported layer pages: the pools are each layer's leaves,
-        # (layer, name), updated in place, with their at-rest rules.
-        self._pool_keys = [(i, n) for i, lc in enumerate(self.cache)
-                           for n in lc]
+        # The leaves, (layer, name), updated in place: page pools with
+        # their at-rest rules, and the slab rows of the layers that do not
+        # page.
+        mask = paged_leaf_mask(cfg)
+        keys = [(i, n) for i, lc in enumerate(self.cache) for n in lc]
+        self._pool_keys = [(i, n) for i, n in keys if mask[i][n]]
+        self._slab_keys = [(i, n) for i, n in keys if not mask[i][n]]
         self._pools = [self.cache[i][n] for i, n in self._pool_keys]
         self._rules = tuple(n if n in ("k", "v") else "raw"
                             for _, n in self._pool_keys)
         self._rest_fmt = qcfg.a_fwd if qcfg.attn else None
         self.ledger.release("cache")
         self.ledger.account("page_pool", self._pools)
-        self.ledger.account("slab_fallback", [])
+        self.ledger.account("slab_fallback",
+                            [self.cache[i][n] for i, n in self._slab_keys])
 
     def _init_cache(self):
         return init_cache_paged(self.cfg, self.n_pages, self.page_size,
-                                self.device)
+                                self.device, B=self.sched.max_batch,
+                                S=self.max_len)
 
     def _zero(self, page_ids: List[int]) -> None:
-        if page_ids:
+        if page_ids and self._pools:
             zero_pages(self._pools, page_ids)
 
     def _row_ids(self, pages: List[int], start_page: int,
@@ -412,15 +431,20 @@ class PagedServeEngine(ServeEngine):
         return finished
 
     def _pagify(self, job: _PrefillJob) -> None:
-        """Whole-prompt prefill of a job and its one-row cache into the
-        row's P pages, with the prompt's ``T // ps`` full pages sealed."""
+        """Whole-prompt prefill of a job: its one-row cache into the row's
+        P pages, with the prompt's ``T // ps`` full pages sealed, and into
+        the job's slab row for the layers that do not page."""
         req, T = job.req, int(job.req.prompt.size)
         logits, one_cache, _ = self._prefill_one(req)
-        write_chunk_pages(self._pools,
-                          [one_cache[i][n] for i, n in self._pool_keys],
-                          self._row_ids(job.pages, 0, self.P),
-                          T // self.page_size, self._rules, self._rest_fmt,
-                          self.qcfg.block, self.qcfg.scale_mode)
+        if self._pools:
+            write_chunk_pages(self._pools,
+                              [one_cache[i][n] for i, n in self._pool_keys],
+                              self._row_ids(job.pages, 0, self.P),
+                              T // self.page_size, self._rules,
+                              self._rest_fmt, self.qcfg.block,
+                              self.qcfg.scale_mode)
+        for i, n in self._slab_keys:
+            self.cache[i][n][job.slot].copy_(one_cache[i][n][0])
         job.n_chunks = 1
         self._ready.append((job, self._first_token(logits, req.sampling)))
         self._jobs.popleft()
@@ -477,7 +501,10 @@ class PagedServeEngine(ServeEngine):
 
     def _place_ready(self) -> List[Request]:
         """Install the jobs whose last chunk just ran, in the same
-        ``step()``."""
+        ``step()``: a finished job's row is still dead, and the next
+        decode step writes every row, so it would clobber the job's ring
+        and recurrent state (slab leaves hide behind no page-table
+        sentinel, as pool leaves do)."""
         finished = []
         while self._ready:
             job, first = self._ready.pop(0)

@@ -488,6 +488,9 @@ class _Window:
     ({"flush": 20, "fwd": 20, "cast": 39}, False),
     ({"flush": 20}, False),                          # no kernel of fn seen
     ({"fwd": 20}, False),                            # no flush seen
+    # the spin kernels that open a window are not counted
+    ({"flush": 20, "fwd": 20, "spin_kernel(long)": 32}, True),
+    ({"flush": 20, "spin_kernel(long)": 32}, False),
 ])
 def test_timer_retakes_a_window_that_lost_records(counts, ok, monkeypatch):
     """time_parts_ms keeps a profiler window only when it saw the flush's

@@ -531,8 +531,11 @@ class _OnCard:
         self.device = torch.device("cpu")
 
 
-@pytest.mark.parametrize("d,dv", [(256, 128), (192, 160)])
+@pytest.mark.parametrize("d,dv", [(288, 256), (192, 288)])
 def test_flash_wrappers_raise_beyond_mla_head_dims(d, dv):
+    """The flash kernels take qk and v head dims up to 256 (MLA's 192 /
+    128 and recurrentgemma's 256 / 256); a wider qk or v head raises on a
+    CUDA tensor."""
     BH, T = 2, 64
     q, k, v = (_OnCard((BH, 1, T, d)), _OnCard((BH, T, d)),
                _OnCard((BH, T, dv)))

@@ -28,8 +28,8 @@ from repro.train import checkpoint as jcheckpoint
 from repro_torch import core
 from repro_torch.configs import get_config
 from repro_torch.convert import param_shapes, params_from_jax
-from repro_torch.models import (LMConfig, attention, layers, lm_decode_step,
-                                lm_init, lm_prefill, mlp)
+from repro_torch.models import (LMConfig, attention, layers, lm_apply,
+                                lm_decode_step, lm_init, lm_prefill, mlp)
 from repro_torch.models.transformer import tree_map
 
 _jprefill = jax.jit(jprefill, static_argnums=(2, 3, 4))
@@ -251,7 +251,21 @@ def test_lm_prefill_and_decode_match_reference(smoke, prec):
     dict(block_pattern=("rec", "attn"), d_rnn=64), dict(window=16),
     dict(enc_layers=2), dict(block_pattern=("mlstm",))])
 def test_other_architectures_raise_not_implemented(overrides):
+    """Tied embeddings, frontends, encoder-decoder and xLSTM raise; Griffin's
+    "rec" blocks and windowed attention are ported (recurrentgemma-9b,
+    tests/test_torch_rglru.py) and give finite logits of the right
+    shape."""
     cfg = LMConfig(**overrides)
+    if "d_rnn" in overrides or "window" in overrides:
+        params = lm_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        tok = torch.randint(0, cfg.vocab, (2, 24),
+                            generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            h, _ = lm_apply(params, {"tokens": tok}, cfg, core.preset("bf16"))
+            logits = layers.qdense(params["lm_head"], h, core.preset("bf16"))
+        assert logits.shape == (2, 24, cfg.vocab)
+        assert bool(torch.isfinite(logits.float()).all())
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         lm_init(cfg, torch.Generator().manual_seed(0), device="cpu")
 
