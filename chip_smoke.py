@@ -164,6 +164,25 @@ Phases, each of which raises on failure:
                 per preset (one flash forward and one flash dgrad a
                 step, the RG-LRU scans' share printed) with two 3-step
                 replays of equal bits.
+ 16. xlstm    — recurrentgemma's state freed: kernels 2-4 at xLSTM's GEMM
+                widths (the gates' 4096 -> 4, a dgrad contraction of 4,
+                the (4096, 4) wgrad; the sLSTM's GeGLU 2048 -> 2720 ->
+                2048) against their plain versions, the GEMM faults
+                planted in dgrad and wgrad; then xlstm-1.3b at full
+                width, one pattern period (7 mLSTM + 1 sLSTM; weights
+                from a CUDA generator): the slab ServeEngine (4 rows) on
+                prompts of 64, 200, 1000 and 2000 tokens x 32 greedy
+                tokens (the 64 on the mLSTM's step scan, the others
+                chunkwise, 200 with a padded last chunk), every step
+                against a teacher-forced forward under the reference's
+                bounds, in mxfp8_e4m3 and bf16; the paged engine's
+                tokens equal with 0 paged leaves; a decode conv window
+                one position off and a chunkwise carry under the chunk-
+                start stabilizer planted in one full-width mLSTM block
+                and rejected; card against CPU logits at 256 positions;
+                10 Trainer steps at 2 x 2048 per preset (the sLSTM
+                loop's share printed) with two 3-step replays of equal
+                bits.
 The kernel phase also holds the dgrad, wgrad and flash dgrad kernels at
 the training shapes (4096 tokens; BH 64, T 512) against their plain
 versions, with planted faults that their checks reject (dgrad with W
@@ -5654,11 +5673,17 @@ def rg_decode_kernel(rows, flush):
 
 class _Recorder:
     """Mixin of a serving engine that keeps each request's logits: the
-    prefill's (its first token) and every decode step's, by rid."""
+    prefill's (its first token) and every decode step's, by rid; and,
+    where ``prefills`` is a dict, each request's one-row prefill cache."""
+
+    prefills = None
 
     def _prefill_one(self, req):
         logits, cache, padded = super()._prefill_one(req)
         self.logits.setdefault(req.rid, []).append(logits[0].float().cpu())
+        if self.prefills is not None:
+            self.prefills[req.rid] = [{n: t.clone() for n, t in c.items()}
+                                      for c in cache]
         return logits, cache, padded
 
     def _decode_logits(self, tok, pos):
@@ -5670,28 +5695,92 @@ class _Recorder:
         return logits
 
 
+def _step_readings(name, got, want):
+    """Per step (row) of one request, (n,): the largest error over the
+    reference's bf16 tolerance, or the MX relative Frobenius error."""
+    import torch
+    if name == "bf16":
+        return ((got - want).abs() / (RG_BF16_TOL + RG_BF16_TOL
+                                      * want.abs())).amax(-1)
+    return torch.linalg.norm(got - want, dim=-1) / torch.linalg.norm(
+        want, dim=-1)
+
+
 def _decode_agrees(name, got, want):
     """Per step (row) of one request: the reference's bound for the preset.
     Returns (ok, worst readings)."""
     import torch
-    diff = (got - want).abs()
+    r = _step_readings(name, got, want)
     if name == "bf16":
-        over = (diff / (RG_BF16_TOL + RG_BF16_TOL * want.abs())).amax(-1)
-        return bool((over <= 1).all()), {"worst_over_tol": over.max().item()}
-    rel = torch.linalg.norm(got - want, dim=-1) / torch.linalg.norm(
-        want, dim=-1)
+        return bool((r <= 1).all()), {"worst_over_tol": r.max().item()}
     cos = (got * want).sum(-1) / (torch.linalg.norm(got, dim=-1)
                                   * torch.linalg.norm(want, dim=-1))
-    return (bool((rel < RG_MX_REL).all() and (cos > RG_MX_COS).all()),
-            {"rel_fro_max": rel.max().item(), "cos_min": cos.min().item()})
+    return (bool((r < RG_MX_REL).all() and (cos > RG_MX_COS).all()),
+            {"rel_fro_max": r.max().item(), "cos_min": cos.min().item()})
 
 
 def rg_serve(params, cfg, dev: str = "cuda"):
     """The slab ServeEngine (4 rows, max_len 4096, ring 2048) on
-    RG_PROMPTS, RG_NEW greedy tokens each, under mxfp8_e4m3 and bf16:
-    every request finishes; each step's logits (the prefill's and every
-    decode step's) against a teacher-forced whole-sequence forward of the
-    prompt and the tokens before it, under the reference's bounds; then
+    RG_PROMPTS, RG_NEW greedy tokens each, through ``serve_check``, with
+    the flash and decode kernels on the path.  Returns the launch counts
+    of the mxfp8_e4m3 runs."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 32)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in RG_PROMPTS]
+    return serve_check(
+        "rgemma", params, cfg, prompts, RG_MAX_LEN, RG_NEW,
+        lambda qcfg: ("mx_flash_attention", "mx_attention_decode") + (
+            ("mx_quantize", "mx_matmul") if qcfg.w_fwd else ()), dev)
+
+
+def _fold(acc: dict, readings: dict) -> None:
+    """Keep in ``acc`` the worst of each of ``_decode_agrees``'s readings:
+    the least cosine, the largest of the others."""
+    for key, val in readings.items():
+        pick = min if key == "cos_min" else max
+        acc[key] = pick(acc.get(key, val), val)
+
+
+def _stepped_replay(eng, cfg, qcfg, done, max_len: int, n_new: int, dev):
+    """The slab engine's decode without the engine, for requests that were
+    admitted together and ran ``n_new`` tokens each: each request's prefill
+    cache (kept by ``_Recorder``) copied into row i of a fresh
+    ``init_cache``, then ``lm_decode_step`` over all rows with the engine's
+    tokens fed back.  Returns each request's prefill logits (the engine's)
+    and every decode step's, (n_new, vocab) fp32 on the host."""
+    import torch
+    from repro_torch.models import init_cache, lm_decode_step
+    p = eng.params
+    cache = init_cache(cfg, len(done), max_len, device=dev)
+    out = []
+    for i, r in enumerate(done):
+        for full, part in zip(cache, eng.prefills.pop(r.rid)):
+            for leaf, t in full.items():
+                t[i].copy_(part[leaf][0])
+        out.append([eng.logits[r.rid][0]])
+    for s in range(1, n_new):
+        tok = torch.tensor([[r.tokens[s - 1]] for r in done], device=dev)
+        pos = torch.tensor([int(r.prompt.size) + s - 1 for r in done],
+                           device=dev)
+        logits, _ = lm_decode_step(p, cache, tok, pos, cfg, qcfg)
+        for i in range(len(done)):
+            out[i].append(logits[i].float().cpu())
+    del cache
+    return [torch.stack(o) for o in out]
+
+
+def serve_check(tag, params, cfg, prompts, max_len: int, n_new: int, path,
+                dev: str = "cuda", held=None):
+    """The slab ServeEngine (4 rows, ``max_len``) on ``prompts``, ``n_new``
+    greedy tokens each, under mxfp8_e4m3 and bf16: every request
+    finishes; the kernels ``path(qcfg)`` all launch on the card; each
+    step's logits (the prefill's and every decode step's) against a
+    teacher-forced whole-sequence forward of the prompt and the tokens
+    before it, under the reference's bounds.  Under a preset of ``held``
+    its first ``held[preset]`` steps are held so, every step's reading is
+    printed, and every step is held under the same bounds against a
+    teacher-forced stepped run (``_stepped_replay``).  Then
     PagedServeEngine on the same prompts: the slab engine's tokens, 0
     paged leaves.  Returns the launch counts of the mxfp8_e4m3 runs."""
     import numpy as np
@@ -5701,7 +5790,7 @@ def rg_serve(params, cfg, dev: str = "cuda"):
     from repro_torch.models import lm_apply
     from repro_torch.models.layers import qdense
     from repro_torch.serve import (PagedServeEngine, SamplingParams,
-                                   ServeEngine, serving_params)
+                                   ServeEngine)
 
     class Slab(_Recorder, ServeEngine):
         pass
@@ -5709,9 +5798,6 @@ def rg_serve(params, cfg, dev: str = "cuda"):
     class Paged(_Recorder, PagedServeEngine):
         pass
 
-    rng = np.random.default_rng(SEED + 32)
-    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
-               for n in RG_PROMPTS]
     counts = {}
     for name in ("mxfp8_e4m3", "bf16"):
         qcfg = preset(name)
@@ -5719,14 +5805,16 @@ def rg_serve(params, cfg, dev: str = "cuda"):
         for kind in ("slab", "paged"):
             if kind == "slab":
                 eng = Slab(params, cfg, qcfg, max_batch=4,
-                           max_len=RG_MAX_LEN, device=dev)
+                           max_len=max_len, device=dev)
             else:
                 eng = Paged(params, cfg, qcfg, max_batch=4,
-                            max_len=RG_MAX_LEN, n_pages=512, page_size=32,
+                            max_len=max_len, n_pages=512, page_size=32,
                             device=dev)
             eng.logits = {}
+            if held is not None and kind == "slab":
+                eng.prefills = {}
             for pr in prompts:
-                eng.submit(pr, SamplingParams(max_new_tokens=RG_NEW))
+                eng.submit(pr, SamplingParams(max_new_tokens=n_new))
             _peak_reset(dev)
             ops.reset_launches()
             t0 = time.perf_counter()
@@ -5735,12 +5823,13 @@ def rg_serve(params, cfg, dev: str = "cuda"):
             wall = time.perf_counter() - t0
             launches = dict(ops.LAUNCHES)
             st = eng.stats()
-            if len(done) != len(prompts) or any(len(r.tokens) != RG_NEW
+            if len(done) != len(prompts) or any(len(r.tokens) != n_new
                                                 for r in done):
-                raise AssertionError(f"rgemma {kind} serve {name}: "
+                raise AssertionError(f"{tag} {kind} serve {name}: "
                                      f"{[len(r.tokens) for r in done]}")
             tokens[kind] = [list(map(int, r.tokens)) for r in done]
-            rec = {"requests": len(done), "prompts": list(RG_PROMPTS),
+            rec = {"requests": len(done),
+                   "prompts": [int(p.size) for p in prompts],
                    "wall_s": wall, "prefill_tok_s": st["prefill_tok_s"],
                    "decode_tok_s": st["decode_tok_s"],
                    "decode_steps": st["decode_steps"],
@@ -5751,22 +5840,25 @@ def rg_serve(params, cfg, dev: str = "cuda"):
                            paged_leaves=len(eng._pool_keys),
                            slab_leaves=len(eng._slab_keys))
                 if eng._pool_keys or eng.chunk:
-                    raise AssertionError("rgemma: the paged engine pages "
+                    raise AssertionError(f"{tag}: the paged engine pages "
                                          f"{eng._pool_keys} or chunks")
             if name == "mxfp8_e4m3":
                 counts[kind] = launches
             if dev == "cuda":   # bf16 mode's GEMMs are not MX GEMMs
-                path = ("mx_flash_attention", "mx_attention_decode") + (
-                    ("mx_quantize", "mx_matmul") if qcfg.w_fwd else ())
-                idle = sorted(k for k in path if launches[k] == 0)
+                idle = sorted(k for k in path(qcfg) if launches[k] == 0)
                 if idle:
-                    raise AssertionError(f"rgemma {kind} serve {name}: "
+                    raise AssertionError(f"{tag} {kind} serve {name}: "
                                          f"kernels never launched: {idle}")
             if kind == "slab":   # every step against the teacher-forced one
                 p = eng.params
-                worst, ok = {}, True
+                n_held = (held or {}).get(name)
+                worst, every, stepped, ok = {}, {}, {}, True
+                per_step = None
                 with torch.inference_mode():
-                    for r in done:
+                    replay = (_stepped_replay(eng, cfg, qcfg, done,
+                                              max_len, n_new, dev)
+                              if n_held is not None else None)
+                    for i, r in enumerate(done):
                         seq = np.concatenate([r.prompt, np.asarray(
                             r.tokens[:-1], np.int32)])
                         h, _ = lm_apply(p, {"tokens": torch.as_tensor(
@@ -5774,35 +5866,55 @@ def rg_serve(params, cfg, dev: str = "cuda"):
                         T = r.prompt.size
                         want = qdense(p["lm_head"], h[0, T - 1:], qcfg)
                         got = torch.stack(eng.logits[r.rid])
-                        good, w = _decode_agrees(name, got,
-                                                 want.float().cpu())
-                        ok = ok and good
-                        for key, val in w.items():
-                            pick = min if key == "cos_min" else max
-                            worst[key] = pick(worst.get(key, val), val)
+                        want = want.float().cpu()
+                        if n_held != 0:
+                            good, w = _decode_agrees(name, got[:n_held],
+                                                     want[:n_held])
+                            ok = ok and good
+                            _fold(worst, w)
+                        if n_held is not None:
+                            _fold(every, _decode_agrees(name, got, want)[1])
+                            per_step = [max(a, b) for a, b in zip(
+                                per_step or [0.0] * len(got),
+                                _step_readings(name, got, want).tolist())]
+                            good, w = _decode_agrees(name, got, replay[i])
+                            ok = ok and good
+                            _fold(stepped, w)
+                            stepped["bitwise"] = (stepped.get("bitwise", True)
+                                                  and torch.equal(got,
+                                                                  replay[i]))
                         del h, want
                 rec["against_teacher_forced"] = worst
-            print(f"[rgemma] serve {kind} {name}: {json.dumps(rec)}",
+                if n_held is not None:
+                    rec.update(held_steps=n_held, every_step=every,
+                               per_step=per_step, against_stepped=stepped)
+            print(f"[{tag}] serve {kind} {name}: {json.dumps(rec)}",
                   flush=True)
             del eng
             _free(dev)
             if kind == "slab" and not ok:
-                raise AssertionError(f"rgemma serve {name}: decode logits "
-                                     f"outside the bounds ({worst})")
+                raise AssertionError(f"{tag} serve {name}: decode logits "
+                                     f"outside the bounds ({worst}, "
+                                     f"stepped {stepped})")
         same = tokens["paged"] == tokens["slab"]
-        print(f"[rgemma] {'ok  ' if same else 'FAIL'} paged tokens equal "
+        print(f"[{tag}] {'ok  ' if same else 'FAIL'} paged tokens equal "
               f"slab tokens {name}: {same}", flush=True)
         if not same:
-            raise AssertionError(f"rgemma {name}: the paged engine's tokens "
+            raise AssertionError(f"{tag} {name}: the paged engine's tokens "
                                  "differ from the slab engine's")
     return counts
 
 
 def rg_logits(params, cfg, dev: str):
-    """{preset: logits (64, vocab) fp32 on the host} of one 64-token
-    prompt through ``cfg``'s layers on ``dev``, with bf16 serving weights
-    made there from ``params``, under each preset of RG_LOGIT, and the
-    seconds each took."""
+    """lm_logits of one 64-token prompt under each preset of RG_LOGIT."""
+    return lm_logits(params, cfg, dev, RG_LOGIT, 64, SEED + 33)
+
+
+def lm_logits(params, cfg, dev: str, presets, n_pos: int, seed: int):
+    """{preset: logits (n_pos, vocab) fp32 on the host} of one
+    ``n_pos``-token prompt (drawn from ``seed``) through ``cfg``'s layers
+    on ``dev``, with bf16 serving weights made there from ``params``,
+    under each of ``presets``, and the seconds each took."""
     import numpy as np
     import torch
     from repro_torch.core import preset
@@ -5810,12 +5922,12 @@ def rg_logits(params, cfg, dev: str):
     from repro_torch.models.layers import qdense
     from repro_torch.serve import serving_params
 
-    prompt = torch.as_tensor(np.random.default_rng(SEED + 33).integers(
-        1, cfg.vocab, (1, 64)), device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(seed).integers(
+        1, cfg.vocab, (1, n_pos)), device=dev)
     out, secs = {}, {}
     with torch.inference_mode():
         p = serving_params(tree_map(lambda t: t.to(dev), params), dev)
-        for name in RG_LOGIT:
+        for name in presets:
             qcfg = preset(name)
             t0 = time.perf_counter()
             h, _ = lm_apply(p, {"tokens": prompt}, cfg, qcfg)
@@ -5831,17 +5943,23 @@ def rg_parity(card, cpu, cfg):
     """rg_logits' results from the card (kernels) and the CPU (plain
     versions), same bf16 serving weights: each preset within RG_LOGIT
     (1.5x the first reading; None prints the first reading)."""
+    return lm_parity("rgemma", card, cpu, cfg, RG_LOGIT)
+
+
+def lm_parity(tag, card, cpu, cfg, limits):
+    """lm_logits' results from the card (kernels) and the CPU (plain
+    versions): each preset within its ``limits`` (rel_fro, max_abs_err),
+    or, where they are None, its first reading printed."""
     out = {}
-    for name in RG_LOGIT:
+    for name in limits:
         rec = _logit_diff(card[0][name], cpu[0][name])
         rec.update(layers=cfg.n_layers, seconds={"cuda": card[1][name],
                                                  "cpu": cpu[1][name]})
-        if RG_LOGIT[name] is None:
-            print(f"[rgemma] first reading, parity {name}: "
+        if limits[name] is None:
+            print(f"[{tag}] first reading, parity {name}: "
                   f"{json.dumps(rec)}", flush=True)
         else:
-            _limit_check(f"parity {name}", rec, *RG_LOGIT[name],
-                         phase="rgemma")
+            _limit_check(f"parity {name}", rec, *limits[name], phase=tag)
         out[name] = rec
     return out
 
@@ -5872,21 +5990,38 @@ def rg_scan_ms(B: int, T: int, d: int, iters: int = 5) -> float:
 
 def rg_train(params, cfg, dev: str = "cuda", B: int = RG_B, T: int = RG_T,
              steps: int = RG_STEPS):
+    """train_check with one flash forward and one flash dgrad a step (the
+    attn layer's) and the RG-LRU scans' share of a step (rg_scan_ms at the
+    step's shape, one scan a rec layer)."""
+    from repro_torch.models import layer_kinds
+    n_rec = layer_kinds(cfg).count("rec")
+    n_attn = layer_kinds(cfg).count("attn")
+    scan = rg_scan_ms(B, T, cfg.d_rnn) if dev == "cuda" else 0.0
+    return train_check(
+        "rgemma", params, cfg, dev, B, T, steps,
+        lambda step_ms: {"scan_ms_per_layer": scan,
+                         "scan_share": n_rec * scan / step_ms},
+        {k: n_attn for k in ("mx_flash_attention",
+                             "mx_flash_attention_bwd")})
+
+
+def train_check(tag, params, cfg, dev, B: int, T: int, steps: int, extra,
+                want, replay_in_run: bool = False):
     """The Trainer at B x T for ``steps`` AdamW steps under mxfp8_e4m3 and
     bf16, on one repeated batch: loss finite and falling by [train]'s
-    rule, one flash forward and one flash dgrad a step (the attn layer's),
-    two 3-step runs giving equal bits; step ms, the RG-LRU scans' share of
-    it (rg_scan_ms at the step's shape, one scan a rec layer) and peak
-    memory printed.  Returns the mxfp8_e4m3 run's launch counts."""
+    rule, the launches a step of the kernels in ``want`` as given there
+    (on the card), two 3-step runs giving equal bits (with
+    ``replay_in_run`` the run's first 3 steps are one of them, the other
+    a fresh Trainer of the same schedule); step ms, peak memory and
+    ``extra(step_ms)`` printed.  Returns the mxfp8_e4m3 run's launch
+    counts ("counts") and each preset's record."""
     from repro_torch.core import preset
     from repro_torch.data import lm_batch
     from repro_torch.kernels import ops
-    from repro_torch.models import layer_kinds, lm_loss
+    from repro_torch.models import lm_loss
     from repro_torch.train import Trainer, TrainerConfig
 
     batch = lm_batch(0, cfg.vocab, B, T, SEED, device=dev)
-    n_rec = layer_kinds(cfg).count("rec")
-    n_attn = layer_kinds(cfg).count("attn")
 
     def trainer(name, total):
         return Trainer(lambda pp, b, q: lm_loss(pp, b, cfg, q),
@@ -5894,16 +6029,21 @@ def rg_train(params, cfg, dev: str = "cuda", B: int = RG_B, T: int = RG_T,
                        tcfg=TrainerConfig(total_steps=total, peak_lr=1e-3,
                                           log_every=1))
 
-    scan = rg_scan_ms(B, T, cfg.d_rnn) if dev == "cuda" else 0.0
     out = {}
     for name in ("mxfp8_e4m3", "bf16"):
         tr = trainer(name, steps)
         _peak_reset(dev)
         ops.reset_launches()
-        t0 = time.perf_counter()
-        hist = tr.run(steps)
-        _sync(dev)
-        wall = time.perf_counter() - t0
+        runs, wall = [], 0.0
+        for n in ((3, steps - 3) if replay_in_run else (steps,)):
+            t0 = time.perf_counter()
+            hist = tr.run(n)            # the whole history so far
+            _sync(dev)
+            wall += time.perf_counter() - t0
+            if replay_in_run and not runs:
+                runs.append(([h["loss"] for h in hist],
+                             _bits({"params": tr.params,
+                                    "opt": tr.opt_state})))
         counts = dict(ops.LAUNCHES)
         losses = [h["loss"] for h in hist]
         times = [h["time_s"] for h in hist]
@@ -5912,39 +6052,35 @@ def rg_train(params, cfg, dev: str = "cuda", B: int = RG_B, T: int = RG_T,
         rec = {"steps": steps, "batch": B, "seq": T, "losses": losses,
                "step_ms": step_s * 1e3, "first_step_ms": times[0] * 1e3,
                "tokens_per_s": B * T / step_s, "wall_s": wall,
-               "scan_ms_per_layer": scan,
-               "scan_share": n_rec * scan / (step_s * 1e3),
+               **extra(step_s * 1e3),
                "max_memory_allocated": _peak(dev),
                "launches_per_step": per_step}
-        print(f"[rgemma] train {name}: {json.dumps(rec)}", flush=True)
+        print(f"[{tag}] train {name}: {json.dumps(rec)}", flush=True)
         del tr
         _free(dev)
         if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"rgemma {name}: non-finite loss {losses}")
+            raise AssertionError(f"{tag} {name}: non-finite loss {losses}")
         first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
         if not last < first:
-            raise AssertionError(f"rgemma {name}: loss did not fall (first "
+            raise AssertionError(f"{tag} {name}: loss did not fall (first "
                                  f"5 {first}, last 5 {last})")
-        want = {k: n_attn for k in ("mx_flash_attention",
-                                    "mx_flash_attention_bwd")}
         got = {k: per_step.get(k, 0) for k in want}
         if dev == "cuda" and got != want:
-            raise AssertionError(f"rgemma {name}: flash launches per step "
-                                 f"{got}, expected {want}")
+            raise AssertionError(f"{tag} {name}: launches per step {got}, "
+                                 f"expected {want}")
         if name == "mxfp8_e4m3":
             out["counts"] = counts
-        runs = []
-        for _ in range(2):
-            rt = trainer(name, 3)
+        while len(runs) < 2:
+            rt = trainer(name, steps if replay_in_run else 3)
             runs.append(([h["loss"] for h in rt.run(3)],
                          _bits({"params": rt.params, "opt": rt.opt_state})))
             del rt
             _free(dev)
         same = runs[0] == runs[1]
-        print(f"[rgemma] train {name} replay: losses {runs[0][0]} / "
+        print(f"[{tag}] train {name} replay: losses {runs[0][0]} / "
               f"{runs[1][0]}, bits equal {same}", flush=True)
         if not same:
-            raise AssertionError(f"rgemma {name}: replays differ")
+            raise AssertionError(f"{tag} {name}: replays differ")
         out[name] = rec
     return out
 
@@ -5993,6 +6129,376 @@ def phase_rgemma(rows):
           "logits", flush=True)
     rg_parity(card, cpu, cfg)
     print(f"[rgemma] phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"serve": serve["slab"], "paged": serve["paged"],
+            "train": train["counts"]}
+
+
+XL_ARCH = "xlstm-1.3b"
+# One pattern period at full width: 7 mLSTM + 1 sLSTM, 0.777 G parameters
+# (an mLSTM block 75.6 M, the sLSTM block 41.9 M, embedding and lm_head
+# 103.0 M each): 3.1 GB of fp32 weights, 12.4 GB of weights, gradients
+# and AdamW moments when training.  The mLSTM's head size is d_in / H =
+# 1024 (not d_head): its C state is 16 MiB fp32 a row a layer.
+XL_LAYERS = 8
+XL_B, XL_T, XL_STEPS = 2, 2048, 10
+# Serving: 4 rows; the 64-token prompt runs the mLSTM's step scan, 200 the
+# chunkwise form with a padded last chunk (3 x 64 + 8), 1000 and 2000 the
+# chunkwise form.  Decode bounds as [rgemma]'s (the reference's).
+XL_PROMPTS = (64, 200, 1000, 2000)
+XL_MAX_LEN, XL_NEW = 2048, 32
+# Each decode step is held against a teacher-forced stepped run (the
+# engine's prefill caches, then decode steps fed the engine's tokens)
+# under the reference's bounds.  Against the teacher-forced whole forward
+# the MX prefill's logits and first decode step are held (the reference's
+# test: one decode step after a prefill, tests/test_serve.py:373-383),
+# and every step's reading is printed.  Decode drifts from the whole
+# forward step by step: its GEMMs and conv sum in other bf16 orders, the
+# gates' preactivations are rounded to bf16 (an ulp at 4 moves a gate's
+# weight exp(i - m) by 1.6%), the MX casts turn an ulp into a step of
+# the e4m3 grid, and the mLSTM's C carries each difference on.  The
+# reference drifts as the port does: its own MX decode steps leave
+# DEC_REL by the sixth at smoke size, the port's within 0.0022 of it
+# step by step (tests/test_torch_xlstm.py, test_decode_drift_...).  In
+# bf16 the whole forward's own GEMMs at another M give other bits: at
+# full width even the prefill's logits read 1.49x the elementwise bound
+# (MX 6.9e-8: kernel 2 sums a row alike at every M), so no bf16 step is
+# held against it (an H100 80GB HBM3); the decode's arithmetic is held
+# in bf16 at the block by xl_fault_checks.
+XL_HELD = {"mxfp8_e4m3": 2, "bf16": 0}
+# Card against CPU logits at 256 positions (the chunkwise form), (rel_fro,
+# max_abs_err): 1.5x the first reading, MX 0.3372 / 2.016, bf16 0.07630 /
+# 0.4961 (an H100 80GB HBM3 at 700 W).  The exponential gates amplify the
+# GEMMs' other sum orders as they do decode's (above).
+XL_LOGIT_T = 256
+XL_LOGIT = {"mxfp8_e4m3": (0.5058, 3.025), "bf16": (0.1144, 0.7441)}
+# Kernels 2-4 at xLSTM's new GEMM widths, bf16 operands in E4M3: the
+# forward (label, K, N) at the decode's 4 rows and 4096 training rows; the
+# gate projections w_i and w_f (4096 -> 4: 4 output columns, and in the
+# backward a contraction of 4, one ragged MX block) and the sLSTM's GeGLU
+# (2048 -> 2720 -> 2048: 85 MX blocks, a ragged last k-tile at
+# BWD_DEPTH 64).  dgrad (label, M, K, N): dy (M, N), w (K, N); wgrad
+# (label, T, K, N): x (T, K), dy (T, N).
+XL_FWD = (("w_i/w_f", 4096, 4), ("sLSTM ffn w_up/w_gate", 2048, 2720),
+          ("sLSTM ffn w_down", 2720, 2048))
+XL_FWD_ROWS = (4, 4096)
+XL_BWD = (("dgrad", "w_i dx", 4096, 4096, 4),
+          ("dgrad", "sLSTM ffn w_up dx", 4096, 2048, 2720),
+          ("wgrad", "w_i dW", 4096, 4096, 4),
+          ("wgrad", "sLSTM ffn w_down dW", 4096, 2720, 2048))
+# The checks that reject the planted faults, on layer 0's mLSTM block at
+# full width in bf16, B 2, a prompt of XL_FAULT_T positions:
+#  * 8 decode steps after its prefill against the whole prefill over the
+#    prompt and those 8 positions, relative Frobenius of the outputs (bf16
+#    outputs of the same products, fp32 state summed in another order:
+#    ~2^-9 a value);
+#  * the chunkwise form against the step scan on the block's own q, k,
+#    v and gates: h, and C and n under the scan's stabilizer (fp32 sums
+#    in other orders).
+XL_FAULT_T = 200
+XL_DECODE_REL = 2e-2
+XL_FORM_REL = 1e-3
+XL_FAULTS = ("decode conv window one position off",
+             "chunkwise carry under the chunk-start stabilizer")
+
+
+def xl_config(n_layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(XL_ARCH, "full"),
+                               n_layers=n_layers)
+
+
+def xl_gemm_kernels(rows, flush):
+    """Kernels 2-4 at XL_FWD / XL_BWD, E4M3 operands under the floor rule:
+    each within gemm_check of its plain version and bitwise on a second
+    call, dgrad and wgrad with GEMM_FAULTS planted and rejected, timed
+    beside the plain version and torch.matmul; each kernel's row gains
+    the cases."""
+    import torch
+    from repro_torch.core import E4M3
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    card = torch.cuda.get_device_name(0)
+
+    def rnd(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * std).bfloat16()
+
+    def absq(x, axis):
+        return ref.mx_quantize_ref(x, E4M3, axis=axis).float().abs()
+
+    def case(name, label, fn, plain, lib, qa, qb, n, bnd, kind=None,
+             operands=None):
+        got, want = fn(), plain()
+        ok, worst, err = gemm_check(got, want, qa, qb, n)
+        replay = torch.equal(got, fn())
+        if kind is not None:
+            check_controls(f"xlstm {kind} {label}",
+                           lambda g_: gemm_check(g_, want, qa, qb, n),
+                           lambda f: planted_gemm(kind, *operands, E4M3,
+                                                  E4M3, f),
+                           GEMM_FAULTS[kind])
+        events0 = EVENT_TIMED[0]
+        entry = {"case": f"xlstm {label} e4m3/e4m3", "max_abs_err": err,
+                 "worst": worst, "replay": replay,
+                 "ms": time_ms(fn, 20, flush),
+                 "plain_ms": time_ms(plain, 3, flush),
+                 "library_ms": time_ms(lib, 20, flush), "card": card}
+        entry["bound_ms"], entry["bound_by"] = bnd
+        entry["timing"] = ("events" if EVENT_TIMED[0] > events0
+                           else "profiler")
+        good = ok and replay
+        print(f"[xlstm] {'ok  ' if good else 'FAIL'} {name} "
+              f"{json.dumps(entry)}", flush=True)
+        if not good:
+            raise AssertionError(f"xlstm {name} {label}: worst err/tol "
+                                 f"{worst}, replay {replay}")
+        rows[name]["cases"].append(entry)
+
+    for label, K, N in XL_FWD:
+        b = rnd(K, N, std=K ** -0.5)
+        for M in XL_FWD_ROWS:
+            a = rnd(M, K)
+            small, _, splits = ops.fwd_gemm_plan(M, N, K)
+            case("mx_matmul", f"{label} {M}x{K}x{N} "
+                 f"({'small-M' if small else 'wgmma'} path, {splits} "
+                 "splits)",
+                 lambda: ops.mx_matmul(a, b, E4M3, E4M3),
+                 lambda: ref.mx_matmul_ref(a, b, E4M3, E4M3),
+                 lambda: torch.matmul(a, b), absq(a, -1), absq(b, 0), K,
+                 bound(2 * (M * K + K * N + M * N), 2 * M * N * K))
+    for kind, label, M, K, N in XL_BWD:
+        if kind == "dgrad":
+            dy, w = rnd(M, N, std=1e-2), rnd(K, N, std=K ** -0.5)
+            case("mx_matmul_dgrad", f"{label} {M}x{N}->{K}",
+                 lambda: ops.mx_matmul_dgrad(dy, w, E4M3, E4M3),
+                 lambda: ref.mx_matmul_dgrad_ref(dy, w, E4M3, E4M3),
+                 lambda: torch.matmul(dy, w.T), absq(dy, -1),
+                 absq(w, 1).T, N,
+                 bound(2 * (M * N + K * N + M * K), 2 * M * N * K),
+                 "dgrad", (dy, w))
+        else:
+            x, dy = rnd(M, K), rnd(M, N, std=1e-2)
+            case("mx_matmul_wgrad", f"{label} T{M} {K}x{N}",
+                 lambda: ops.mx_matmul_wgrad(x, dy, E4M3, E4M3),
+                 lambda: ref.mx_matmul_wgrad_ref(x, dy, E4M3, E4M3),
+                 lambda: torch.matmul(x.T, dy), absq(x, 0).T, absq(dy, 0),
+                 M, bound(2 * (M * K + M * N + K * N), 2 * M * N * K),
+                 "wgrad", (x, dy))
+    torch.cuda.empty_cache()
+
+
+def xl_serve(params, cfg, dev: str = "cuda"):
+    """serve_check on XL_PROMPTS (XL_NEW greedy tokens each, max_len
+    XL_MAX_LEN), the quantize and forward GEMM kernels on the path."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 41)
+    prompts = [rng.integers(1, cfg.vocab, n).astype(np.int32)
+               for n in XL_PROMPTS]
+    return serve_check(
+        "xlstm", params, cfg, prompts, XL_MAX_LEN, XL_NEW,
+        lambda qcfg: ("mx_quantize", "mx_matmul") if qcfg.w_fwd else (),
+        dev, held=XL_HELD)
+
+
+def _xl_fault_wraps():
+    """The planted faults, each a wrapper of a function of
+    ``models.xlstm``: the decode's conv window one position off (its
+    oldest input dropped, the new one taken twice), and the chunkwise
+    carry's stabilizer taken at the chunk's start (the first row's) while
+    C and n are carried under the chunk end's."""
+    import torch
+
+    def conv_off(orig):
+        def f(w, b, x, state=None):
+            if state is not None:
+                state = torch.cat([state[:, 1:], x.to(state.dtype)], 1)
+            return orig(w, b, x, state)
+        return f
+
+    def start_m(orig):
+        def f(C, n, m_prev, a, g, m_row, kt, vt):
+            C, n, _ = orig(C, n, m_prev, a, g, m_row, kt, vt)
+            return C, n, g[..., -1] + m_row[..., 0]
+        return f
+    return {XL_FAULTS[0]: ("_conv1d", conv_off),
+            XL_FAULTS[1]: ("_chunk_carry", start_m)}
+
+
+def _xl_planted(fault, fn):
+    """``fn()`` with ``fault`` planted in ``models.xlstm`` (None: as it
+    is)."""
+    from repro_torch.models import xlstm
+    if fault is None:
+        return fn()
+    name, wrap = _xl_fault_wraps()[fault]
+    orig = getattr(xlstm, name)
+    setattr(xlstm, name, wrap(orig))
+    try:
+        return fn()
+    finally:
+        setattr(xlstm, name, orig)
+
+
+def xl_fault_checks(params, cfg, dev: str = "cuda"):
+    """Layer 0's mLSTM block in bf16 (serving weights), B 2, a prompt of
+    XL_FAULT_T positions: 8 decode steps after its prefill against the
+    whole prefill (within XL_DECODE_REL), the chunkwise form against the
+    step scan on its own q, k, v and gates (within XL_FORM_REL); each with
+    its XL_FAULTS fault planted and rejected.  Returns the readings."""
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import xlstm
+    from repro_torch.serve import serving_params
+    qcfg = preset("bf16")
+    p = serving_params(params["layers"][0]["cell"], dev)
+    H, T0, n = cfg.n_heads, XL_FAULT_T, 8
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    x = torch.randn((2, T0 + n, cfg.d_model), generator=g,
+                    device=dev).bfloat16()
+
+    def rel(a, b):
+        return (torch.linalg.norm((a.float() - b.float()).flatten())
+                / torch.linalg.norm(b.float().flatten())).item()
+
+    @torch.inference_mode()
+    def decode_rel():
+        whole, _ = xlstm.mlstm_prefill(p, x, qcfg, H)
+        _, cache = xlstm.mlstm_prefill(p, x[:, :T0], qcfg, H)
+        outs = [xlstm.mlstm_decode(p, x[:, i:i + 1], cache, qcfg, H)[0]
+                for i in range(T0, T0 + n)]
+        return rel(torch.cat(outs, 1), whole[:, T0:])
+
+    @torch.inference_mode()
+    def form_rel():
+        gates = xlstm._mlstm_in(p, x[:, :T0], qcfg, H)[4]
+        hc, (Cc, nc, mc) = xlstm._mlstm_chunkwise(*gates)
+        hs, (Cs, ns, ms) = xlstm._mlstm_scan(*gates)
+        sc = torch.exp(mc - ms)
+        return max(rel(hc, hs), rel(Cc * sc[..., None, None], Cs),
+                   rel(nc * sc[..., None], ns))
+
+    out = {}
+    for (check, limit), fault in zip(((decode_rel, XL_DECODE_REL),
+                                      (form_rel, XL_FORM_REL)), XL_FAULTS):
+        clean = _xl_planted(None, check)
+        bad = _xl_planted(fault, check)
+        ok = clean <= limit
+        print(f"[xlstm] {'ok  ' if ok else 'FAIL'} {check.__name__} "
+              f"{clean:.4g} (limit {limit})", flush=True)
+        rejected = not bad <= limit     # a NaN reading is rejected too
+        print(f"[controls] xlstm {check.__name__}: {fault!r} {bad:.4g} "
+              f"({'rejected' if rejected else 'ACCEPTED'})", flush=True)
+        if not ok:
+            raise AssertionError(f"xlstm {check.__name__}: {clean} over "
+                                 f"{limit}")
+        if not rejected:
+            raise AssertionError(f"xlstm {check.__name__}: the limit "
+                                 f"accepts the planted fault {fault!r}")
+        out[check.__name__] = {"reading": clean, "planted": bad}
+    del p, x
+    _free(dev)
+    return out
+
+
+def xl_slstm_ms(params, cfg, dev: str, B: int, T: int) -> float:
+    """Wall ms of the sLSTM block forward and backward at B x T under
+    mxfp8_e4m3 (its GEMMs and its loop over positions; the loop's launches
+    bind it to the host), one run on a card warm from a training run."""
+    import torch
+    from repro_torch.core import preset
+    from repro_torch.models import layer_kinds, tree_map, xlstm
+    layer = layer_kinds(cfg).index("slstm")
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                 params["layers"][layer]["cell"])
+    g = torch.Generator(device=dev).manual_seed(SEED + 44)
+    x = torch.randn((B, T, cfg.d_model), generator=g,
+                    device=dev).bfloat16().requires_grad_(True)
+    qcfg = preset("mxfp8_e4m3")
+    _sync(dev)
+    t0 = time.perf_counter()
+    y = xlstm.slstm_apply(p, x, qcfg, cfg.n_heads)
+    y.float().square().sum().backward()
+    _sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    del p, x, y
+    _free(dev)
+    return ms
+
+
+def xl_train(params, cfg, dev: str = "cuda", B: int = XL_B, T: int = XL_T,
+             steps: int = XL_STEPS):
+    """train_check with no attention kernel launched, the four GEMM and
+    quantize kernels launched under mxfp8_e4m3, and the sLSTM block's
+    share of a step (xl_slstm_ms at the step's shape)."""
+    slstm = []
+
+    def share(step_ms):
+        if not slstm:       # once, warm from the mxfp8_e4m3 run
+            slstm.append(xl_slstm_ms(params, cfg, dev, B, T))
+        return {"slstm_ms": slstm[0], "slstm_share": slstm[0] / step_ms}
+    out = train_check(
+        "xlstm", params, cfg, dev, B, T, steps, share,
+        {k: 0 for k in ("mx_flash_attention", "mx_flash_attention_bwd")},
+        replay_in_run=True)
+    idle = sorted(k for k in ("mx_quantize", "mx_matmul", "mx_matmul_dgrad",
+                              "mx_matmul_wgrad")
+                  if dev == "cuda" and out["counts"][k] == 0)
+    if idle:
+        raise AssertionError(f"xlstm train: kernels never launched: {idle}")
+    return out
+
+
+def phase_xlstm(rows):
+    """[xlstm]: kernels 2-4 at xLSTM's GEMM widths, then xlstm-1.3b at full
+    width, one pattern period (7 mLSTM + 1 sLSTM), weights drawn on a CUDA
+    generator: slab and paged serving with each decode step against a
+    teacher-forced forward, the planted decode and chunkwise faults
+    rejected, card against CPU logits at 256 positions, and training.
+    Returns the launch counts of the serve, paged and train runs."""
+    import torch
+    from repro_torch.core.diagnostics import tree_leaves_with_path
+    from repro_torch.models import lm_init, tree_map
+
+    t_phase = time.perf_counter()
+    lap = _laps("xlstm")
+    flush = torch.zeros(64 * 2 ** 20, dtype=torch.uint8,
+                        device="cuda").bitwise_not_
+    xl_gemm_kernels(rows, flush)
+    del flush
+    lap("kernels")
+    cfg = xl_config(XL_LAYERS)
+    params = lm_init(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                     "cuda")
+    n = sum(t.numel() for _, t in tree_leaves_with_path(params))
+    host = tree_map(lambda t: t.cpu(), params)
+    print(f"[xlstm] {cfg.name} {cfg.n_layers} layers: {n} parameters",
+          flush=True)
+    lap("weights")
+    # The CPU side of the card-against-CPU logits runs in a thread while
+    # the card works, on all but 2 of the host's cores.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 2))
+    with ThreadPoolExecutor(1) as pool:
+        cpu = pool.submit(lm_logits, host, cfg, "cpu", XL_LOGIT, XL_LOGIT_T,
+                          SEED + 43)
+        serve = xl_serve(params, cfg)
+        lap("serve")
+        xl_fault_checks(params, cfg)
+        card = lm_logits(params, cfg, "cuda", XL_LOGIT, XL_LOGIT_T,
+                         SEED + 43)
+        lap("faults, card logits")
+        train = xl_train(params, cfg)
+        lap("train")
+        t0 = time.perf_counter()
+        cpu = cpu.result()
+    torch.set_num_threads(threads)
+    print(f"[xlstm] waited {time.perf_counter() - t0:.1f} s for the CPU "
+          "logits", flush=True)
+    lm_parity("xlstm", card, cpu, cfg, XL_LOGIT)
+    del params, host
+    _free("cuda")
+    print(f"[xlstm] phase {time.perf_counter() - t_phase:.1f} s (limit "
+          "150 s)", flush=True)
     return {"serve": serve["slab"], "paged": serve["paged"],
             "train": train["counts"]}
 
@@ -6058,6 +6564,9 @@ def main() -> int:
     _free("cuda")   # deepseek's state is gone before recurrentgemma's
     rg = phase_rgemma(rows)
     lap("rgemma")
+    _free("cuda")   # recurrentgemma's state is gone before xlstm's
+    xl = phase_xlstm(rows)
+    lap("xlstm")
 
     # "launches": each kernel's count over the run of its own path under
     # mxfp8_e4m3, counts set to 0 just before it (serving for the slice-1
@@ -6071,7 +6580,9 @@ def main() -> int:
     # "launches_mla_train" over [mla]'s slab and paged serving and its 10
     # mxfp8_e4m3 training steps; "launches_rgemma_serve",
     # "launches_rgemma_paged" and "launches_rgemma_train" over [rgemma]'s
-    # slab and paged serving and its 10 mxfp8_e4m3 training steps.
+    # slab and paged serving and its 10 mxfp8_e4m3 training steps;
+    # "launches_xlstm_serve", "launches_xlstm_paged" and
+    # "launches_xlstm_train" over [xlstm]'s.
     serve_path = ("mx_quantize", "mx_matmul", "mx_flash_attention",
                   "mx_attention_decode")
     train_counts = train["mxfp8_e4m3"]["counts"]
@@ -6106,6 +6617,9 @@ def main() -> int:
             "launches_rgemma_serve": rg["serve"][name],
             "launches_rgemma_paged": rg["paged"][name],
             "launches_rgemma_train": rg["train"][name],
+            "launches_xlstm_serve": xl["serve"][name],
+            "launches_xlstm_paged": xl["paged"][name],
+            "launches_xlstm_train": xl["train"][name],
             "launches_per_prefill": per_prefill[name],
             "launches_per_decode_step": per_decode[name],
             "launches_per_paged_decode_step": per_paged[name],

@@ -19,7 +19,7 @@ def register(name: str, full: Callable[[], LMConfig],
 
 def get_config(name: str, variant: str = "full") -> LMConfig:
     from . import (deepseek_v2_236b, moonshot_v1_16b_a3b,  # noqa: F401
-                   olmo_paper, recurrentgemma_9b)  # (register)
+                   olmo_paper, recurrentgemma_9b, xlstm_1_3b)  # (register)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port knows "
                        f"{sorted(_REGISTRY)}")

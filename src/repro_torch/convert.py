@@ -27,6 +27,7 @@ import torch
 from repro_torch.devices import resolve_device
 from repro_torch.models import LMConfig, block_plan, check_supported
 from repro_torch.models.mlp import GATED
+from repro_torch.models.xlstm import mlstm_dims, slstm_ff
 
 __all__ = ["params_from_jax", "params_to_jax", "param_shapes",
            "lm_checkpoint_layout"]
@@ -74,13 +75,39 @@ def _rec(cfg: LMConfig):
             "w_i": _dense(R, R), "w_r": _dense(R, R), "w_out": _dense(R, D)}
 
 
+def _xlstm(cfg: LMConfig, kind: str):
+    """An xLSTM block's leaves: its pre-norm ``ln`` and the cell's
+    (``mlstm_init`` / ``slstm_init``; their inner norms are RMSNorms, the
+    sLSTM's FFN a GeGLU whatever ``cfg.act`` says, as in the
+    reference)."""
+    D, H = cfg.d_model, cfg.n_heads
+    if kind == "mlstm":
+        d_in, _ = mlstm_dims(D, H)
+        cell = {"w_up": _dense(D, 2 * d_in), "conv_w": (4, d_in),
+                "conv_b": (d_in,), "w_q": _dense(d_in, d_in),
+                "w_k": _dense(d_in, d_in), "w_v": _dense(d_in, d_in),
+                "w_i": _dense(d_in, H), "w_f": _dense(d_in, H),
+                "skip_scale": (d_in,), "out_ln": _norm(d_in, "rmsnorm"),
+                "w_down": _dense(d_in, D)}
+    else:
+        dh, ff = D // H, slstm_ff(D)
+        cell = {"w_gates": _dense(D, 4 * D), "r_gates": (H, dh, 4 * dh),
+                "ffn_ln": _norm(D, "rmsnorm"),
+                "ffn": {"w_up": _dense(D, ff), "w_down": _dense(ff, D),
+                        "w_gate": _dense(D, ff)},
+                "out_ln": _norm(D, "rmsnorm"), "w_out": _dense(D, D)}
+    return {"ln": _norm(D, cfg.norm), "cell": cell}
+
+
 def _block_shapes(cfg: LMConfig, kind: str = "attn") -> Dict[str, Any]:
     """One block's parameter tree with shapes as leaves: a dense block, or
     on an MoE config's ``"attn"`` layers the routed experts (``moe``) and
     the shared ones (``shared``); on an MLA config ``attn`` holds the MLA
     projections and norms; a ``"rec"`` block holds ``rec`` in place of
-    ``attn``."""
+    ``attn``; an ``"mlstm"`` or ``"slstm"`` block is ``{"ln", "cell"}``."""
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    if kind in ("mlstm", "slstm"):
+        return _xlstm(cfg, kind)
     if kind == "rec":
         return {"ln1": _norm(D, cfg.norm), "rec": _rec(cfg),
                 "ln2": _norm(D, cfg.norm), "mlp": _mlp(cfg, cfg.d_ff)}
@@ -115,8 +142,9 @@ def _block_shapes(cfg: LMConfig, kind: str = "attn") -> Dict[str, Any]:
 def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
     """The port's parameter tree with shapes as leaves, one block of each
     kind: "layer" is the stack's repeated block, an MoE config with
-    leading dense layers adds "dense_layer" and a config with ``"rec"``
-    blocks "rec_layer"."""
+    leading dense layers adds "dense_layer", a config with ``"rec"``
+    blocks "rec_layer", and one with xLSTM blocks "mlstm_layer" and
+    "slstm_layer"."""
     out = {"embed": {"table": (cfg.vocab, cfg.d_model)},
            "layer": _block_shapes(cfg),
            "final_ln": _norm(cfg.d_model, cfg.norm),
@@ -124,8 +152,9 @@ def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
     kinds = {k for pattern, _ in block_plan(cfg) for k in pattern}
     if "dense_attn" in kinds:
         out["dense_layer"] = _block_shapes(cfg, "dense_attn")
-    if "rec" in kinds:
-        out["rec_layer"] = _block_shapes(cfg, "rec")
+    for kind in ("rec", "mlstm", "slstm"):
+        if kind in kinds:
+            out[f"{kind}_layer"] = _block_shapes(cfg, kind)
     return out
 
 

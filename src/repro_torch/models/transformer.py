@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.models.transformer`` for ``"attn"`` blocks, dense
 or MoE, with multi-head attention or MLA (``models.mla``), global or
-windowed, and Griffin's ``"rec"`` blocks (``models.rglru``).  Parameters
+windowed, Griffin's ``"rec"`` blocks (``models.rglru``) and xLSTM's
+``"mlstm"`` and ``"slstm"`` blocks (``models.xlstm``).  Parameters
 are a plain dict with per-layer entries:
 
     {"embed": {"table"}, "layers": [block, ...], "final_ln": {...},
@@ -10,8 +11,10 @@ are a plain dict with per-layer entries:
 
 where each ``block`` has the reference's per-block names (``ln1``, ``attn``,
 ``ln2``, and ``mlp``, or on an MoE layer ``moe`` and ``shared``); on an MLA
-config ``attn`` holds ``mla_init``'s leaves, and a ``"rec"`` block holds
-``rec`` (``rec_block_init``'s leaves) in place of ``attn``.  An MoE config's first
+config ``attn`` holds ``mla_init``'s leaves, a ``"rec"`` block holds
+``rec`` (``rec_block_init``'s leaves) in place of ``attn``, and an xLSTM
+block is the reference's ``{"ln", "cell"}`` (a pre-norm and the cell's
+leaves, its FFN inside the cell).  An MoE config's first
 ``first_dense`` layers are dense (the reference's leading ``"dense_attn"``
 group).  Layer ``i`` is the reference's stacked group entry
 ``blocks[g]["b{j}"][r]`` in plan order (see ``convert.params_from_jax``).
@@ -19,21 +22,24 @@ The decode cache is a list with one ``{"k", "v"}`` dict of (B, S, Hkv, d)
 bf16 tensors per layer (on MLA, ``{"ckv", "kr"}`` latents of (B, S,
 kv_lora) and (B, S, rope_dim); on a windowed layer a ring of min(S,
 window) slots; on a ``"rec"`` layer ``{"conv"}`` (B, 3, d_rnn) bf16 and
-``{"h"}`` (B, d_rnn) fp32), updated in place; the paged cache
+``{"h"}`` (B, d_rnn) fp32; on an ``"mlstm"`` layer ``{"conv"}`` (B, 3,
+d_in) bf16 and ``{"C", "n", "m"}`` fp32, on an ``"slstm"`` layer ``{"c",
+"n", "m", "h"}`` fp32, both ``m`` starting at -1e30), updated in place;
+the paged cache
 (``init_cache_paged``) is the same list with (N, ps, ...) page pools in
 place of the (B, S, ...) rows of every layer that pages (``kind_paged``:
-global attention and MLA), addressed through one (B, P) page table; ring
-and recurrent layers keep their slab rows there.
+global attention and MLA), addressed through one (B, P) page table; ring,
+recurrent and xLSTM layers keep their slab rows there.
 Layers run as a Python loop over that list; the reference's activation
 checkpointing (``remat``) is not ported yet: at olmo-paper's size the
 activations fit.
 
-xLSTM, encoder-decoder, frontend and tied-embedding configs raise
+Encoder-decoder, frontend and tied-embedding configs raise
 ``NotImplementedError``: they come with a later slice of the port
-(ROADMAP Queue A item 4).  MoE, MLA, windowed and recurrent configs
-prefill whole: ``lm_prefill_chunk`` raises for them (``chunk_supported``),
-and the paged engine pages their cache (or inserts its slab rows) after a
-whole-prompt prefill.
+(ROADMAP Queue A item 4).  MoE, MLA, windowed, recurrent and xLSTM
+configs prefill whole: ``lm_prefill_chunk`` raises for them
+(``chunk_supported``), and the paged engine pages their cache (or
+inserts its slab rows) after a whole-prompt prefill.
 """
 from __future__ import annotations
 
@@ -56,6 +62,9 @@ from .mlp import mlp_apply, mlp_init
 from .moe import moe_apply, moe_init
 from .rglru import (rec_block_apply, rec_block_decode, rec_block_init,
                     rec_block_prefill)
+from .xlstm import (M_INIT, mlstm_apply, mlstm_decode, mlstm_dims,
+                    mlstm_init, mlstm_prefill, slstm_apply, slstm_decode,
+                    slstm_init, slstm_prefill)
 
 __all__ = ["LMConfig", "block_plan", "lm_init", "lm_apply", "lm_loss",
            "init_cache", "lm_prefill", "lm_decode_step", "prefill_supported",
@@ -137,7 +146,7 @@ class LMConfig:
 def check_supported(cfg: LMConfig) -> None:
     """Raise for configs outside this slice of the port."""
     later = []
-    if not set(cfg.block_pattern) <= {"attn", "rec"}:
+    if not set(cfg.block_pattern) <= {"attn", "rec", "mlstm", "slstm"}:
         later.append(f"block kinds {sorted(set(cfg.block_pattern))}")
     if cfg.enc_layers or cfg.frontend != "none":
         later.append("encoder-decoder / modality frontends")
@@ -147,9 +156,10 @@ def check_supported(cfg: LMConfig) -> None:
         raise NotImplementedError(
             f"config {cfg.name!r} needs {', '.join(later)}: the port serves "
             "'attn' stacks, dense or MoE, with MHA/GQA or MLA, global or "
-            "windowed, and Griffin's 'rec' blocks; the other architectures "
-            "(xLSTM first) come with a later slice of the port (ROADMAP "
-            "Queue A item 4)")
+            "windowed, Griffin's 'rec' blocks and xLSTM's 'mlstm' and "
+            "'slstm' blocks; the other architectures (encoder-decoder and "
+            "frontends after the four dense configs) come with a later "
+            "slice of the port (ROADMAP Queue A item 4)")
 
 
 def block_plan(cfg: LMConfig) -> List[Tuple[Tuple[str, ...], int]]:
@@ -183,9 +193,10 @@ def prefill_supported(cfg: LMConfig) -> bool:
 
 def chunk_supported(cfg: LMConfig) -> bool:
     """Whether ``lm_prefill_chunk`` covers this config: a pure global-
-    attention decoder stack.  Windowed, recurrent, MLA and MoE configs
-    prefill whole: their prefix state is not an append-only K/V sequence
-    (ring slots, recurrent state, latents, batch-level routing)."""
+    attention decoder stack.  Windowed, recurrent, xLSTM, MLA and MoE
+    configs prefill whole: their prefix state is not an append-only K/V
+    sequence (ring slots, recurrent state, latents, batch-level
+    routing)."""
     return (prefill_supported(cfg) and not cfg.mla and cfg.window == 0
             and cfg.n_experts == 0 and cfg.d_rnn == 0
             and set(cfg.block_pattern) <= {"attn"})
@@ -194,6 +205,10 @@ def chunk_supported(cfg: LMConfig) -> bool:
 def _block_init(generator: torch.Generator, kind: str, cfg: LMConfig):
     L = cfg.n_layers
     gd = generator.device
+    if kind in _XLSTM:
+        return {"ln": norm_init(cfg.d_model, cfg.norm, gd),
+                "cell": _XLSTM[kind][0](generator, cfg.d_model, cfg.n_heads,
+                                        L)}
     p = {"ln1": norm_init(cfg.d_model, cfg.norm, gd),
          "ln2": norm_init(cfg.d_model, cfg.norm, gd)}
     if kind == "rec":
@@ -217,6 +232,12 @@ def _block_init(generator: torch.Generator, kind: str, cfg: LMConfig):
     else:
         p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, L)
     return p
+
+
+#: xLSTM block kinds: (init, apply, prefill, decode) of the cell, each
+#: taking the config's n_heads after the quantization config.
+_XLSTM = {"mlstm": (mlstm_init, mlstm_apply, mlstm_prefill, mlstm_decode),
+          "slstm": (slstm_init, slstm_apply, slstm_prefill, slstm_decode)}
 
 
 def lm_init(cfg: LMConfig, generator: torch.Generator, device=None
@@ -248,8 +269,8 @@ def tree_map(fn, tree):
 def kind_paged(kind: str, cfg: LMConfig) -> bool:
     """Whether a block kind's decode state lives in page pools: global
     attention and MLA latents page; ring-buffer (windowed) layers and
-    recurrent state keep their slab rows (O(window) and O(1) a row:
-    nothing to page)."""
+    recurrent and xLSTM state keep their slab rows (O(window) and O(1) a
+    row: nothing to page)."""
     if kind not in ("attn", "dense_attn"):
         return False
     return cfg.mla or not (cfg.window and kind == "attn")
@@ -258,9 +279,18 @@ def kind_paged(kind: str, cfg: LMConfig) -> bool:
 def _cache_shapes(cfg: LMConfig, kind: str, lead: Tuple[int, int]) -> dict:
     """One layer's decode-cache leaves, (shape, dtype), with ``lead`` =
     (B, S) rows or (N, ps) pages in front: K/V heads (a ring of min(S,
-    window) slots on a windowed layer), MLA's latents, or a ``"rec"``
-    layer's conv window and fp32 state."""
-    bf = torch.bfloat16
+    window) slots on a windowed layer), MLA's latents, a ``"rec"`` layer's
+    conv window and fp32 state, or an xLSTM layer's (its head size is
+    d_in / H for the mLSTM and D / H for the sLSTM, not d_head)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    if kind == "mlstm":
+        B, H = lead[0], cfg.n_heads
+        d_in, dh = mlstm_dims(cfg.d_model, H)
+        return {"conv": ((B, 3, d_in), bf), "C": ((B, H, dh, dh), f32),
+                "n": ((B, H, dh), f32), "m": ((B, H), f32)}
+    if kind == "slstm":
+        shp = (lead[0], cfg.n_heads, cfg.d_model // cfg.n_heads)
+        return {n: (shp, f32) for n in "cnmh"}
     if kind == "rec":
         B = lead[0]
         return {"conv": ((B, 3, cfg.d_rnn), bf),
@@ -275,15 +305,19 @@ def _cache_shapes(cfg: LMConfig, kind: str, lead: Tuple[int, int]) -> dict:
 
 
 def _zeros(cfg: LMConfig, kind: str, lead, device) -> dict:
-    return {n: torch.zeros(shp, dtype=dt, device=device)
+    """A layer's initial decode state: zeros, but an xLSTM stabilizer
+    ``m`` at the reference's -1e30."""
+    return {n: torch.full(shp, M_INIT if n == "m" else 0.0, dtype=dt,
+                          device=device)
             for n, (shp, dt) in _cache_shapes(cfg, kind, lead).items()}
 
 
 def init_cache(cfg: LMConfig, B: int, S: int, device=None) -> List[dict]:
-    """Zeroed decode cache per layer: bf16 (B, S, Hkv, d) K/V (a ring of
-    min(S, window) slots on windowed layers), MLA's (B, S, kv_lora) /
-    (B, S, rope_dim) latents, or a ``"rec"`` layer's (B, 3, d_rnn) bf16
-    conv window and (B, d_rnn) fp32 state."""
+    """Initial decode cache per layer: zeroed bf16 (B, S, Hkv, d) K/V (a
+    ring of min(S, window) slots on windowed layers), MLA's (B, S,
+    kv_lora) / (B, S, rope_dim) latents, a ``"rec"`` layer's (B, 3, d_rnn)
+    bf16 conv window and (B, d_rnn) fp32 state, or an xLSTM layer's conv
+    window and fp32 cell state (``m`` at -1e30)."""
     check_supported(cfg)
     device = resolve_device(device)
     return [_zeros(cfg, kind, (B, S), device) for kind in layer_kinds(cfg)]
@@ -353,6 +387,10 @@ def lm_apply(params, batch, cfg: LMConfig, qcfg: QuantConfig):
     positions = torch.arange(T, device=tok.device)[None].expand(B, T)
     aux = torch.zeros((), dtype=torch.float32, device=tok.device)
     for kind, lp in zip(layer_kinds(cfg), params["layers"]):
+        if kind in _XLSTM:
+            h = h + _XLSTM[kind][1](lp["cell"], apply_norm(
+                lp["ln"], h, qcfg, cfg.norm), qcfg, cfg.n_heads)
+            continue
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
         if kind == "rec":
             a = rec_block_apply(lp["rec"], hn, qcfg)
@@ -409,6 +447,12 @@ def lm_prefill(params, tokens: torch.Tensor, cfg: LMConfig,
     positions = torch.arange(T, device=tokens.device)[None].expand(B, T)
     caches = []
     for kind, lp in zip(layer_kinds(cfg), params["layers"]):
+        if kind in _XLSTM:
+            a, c = _XLSTM[kind][2](lp["cell"], apply_norm(
+                lp["ln"], h, qcfg, cfg.norm), qcfg, cfg.n_heads)
+            h = h + a
+            caches.append(c)
+            continue
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
         if kind == "rec":
             a, c = rec_block_prefill(lp["rec"], hn, qcfg)
@@ -476,10 +520,10 @@ def lm_decode_step(params, cache: List[dict], tok: torch.Tensor,
     returns (logits (B, vocab), cache).  With ``page_table`` ((B, P)
     int32), ``cache`` is ``init_cache_paged``'s and every layer that pages
     decodes through the table; ``live`` (n,) long names the rows whose
-    tail page is mapped (see ``paged_write_slots``).  Ring (windowed) and
-    ``"rec"`` layers decode on their slab rows either way, every row live
-    or not.  An MLA config decodes in the absorbed form on its latent cache
-    (``mla_decode`` / ``mla_decode_paged``)."""
+    tail page is mapped (see ``paged_write_slots``).  Ring (windowed),
+    ``"rec"`` and xLSTM layers decode on their slab rows either way, every
+    row live or not.  An MLA config decodes in the absorbed form on its
+    latent cache (``mla_decode`` / ``mla_decode_paged``)."""
     check_supported(cfg)
     B = tok.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.long, device=tok.device)
@@ -497,6 +541,11 @@ def lm_decode_step(params, cache: List[dict], tok: torch.Tensor,
                    valid=paged_valid_mask(page_table, pos, ps))
     h = embed_lookup(params["embed"], tok)
     for kind, pg, lp, lc in zip(kinds, paged, params["layers"], cache):
+        if kind in _XLSTM:
+            a, _ = _XLSTM[kind][3](lp["cell"], apply_norm(
+                lp["ln"], h, qcfg, cfg.norm), lc, qcfg, cfg.n_heads)
+            h = h + a
+            continue
         hn = apply_norm(lp["ln1"], h, qcfg, cfg.norm)
         if kind == "rec":
             a, _ = rec_block_decode(lp["rec"], hn, lc, qcfg)

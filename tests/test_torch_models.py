@@ -251,12 +251,14 @@ def test_lm_prefill_and_decode_match_reference(smoke, prec):
     dict(block_pattern=("rec", "attn"), d_rnn=64), dict(window=16),
     dict(enc_layers=2), dict(block_pattern=("mlstm",))])
 def test_other_architectures_raise_not_implemented(overrides):
-    """Tied embeddings, frontends, encoder-decoder and xLSTM raise; Griffin's
-    "rec" blocks and windowed attention are ported (recurrentgemma-9b,
-    tests/test_torch_rglru.py) and give finite logits of the right
-    shape."""
+    """Tied embeddings, frontends and encoder-decoder raise; Griffin's
+    "rec" blocks, windowed attention (recurrentgemma-9b,
+    tests/test_torch_rglru.py) and xLSTM's mLSTM blocks (xlstm-1.3b,
+    tests/test_torch_xlstm.py) are ported and give finite logits of the
+    right shape."""
     cfg = LMConfig(**overrides)
-    if "d_rnn" in overrides or "window" in overrides:
+    if ("d_rnn" in overrides or "window" in overrides
+            or "block_pattern" in overrides):
         params = lm_init(cfg, torch.Generator().manual_seed(0), device="cpu")
         tok = torch.randint(0, cfg.vocab, (2, 24),
                             generator=torch.Generator().manual_seed(1))
